@@ -1,0 +1,319 @@
+"""DualStyleUNet: pose map -> dual (front/back) Gaussian-map CNN, forward
+only.
+
+Port of ``animatablegaussians_tpu/models/styleunet.py`` as ``nn.Module``s
+whose ``state_dict`` keys are the reference torch checkpoint's names, the
+ones ``animatablegaussians_tpu/training/checkpoint.py::import_dual_styleunet``
+reads (``conv_in.1.weight``, ``convs1.3.conv.weight`` of shape
+(1, out, in, k, k), ``noises.noise_i`` in NCHW, ...). The CNN runs NCHW
+inside; ``DualStyleUNet.forward`` takes and returns NHWC like the JAX
+``apply``.
+
+The JAX package folds the up-conv + blur and blur + down-conv chains into
+polyphase convolutions (styleunet.py:208-256,294-348); here they are the
+chains themselves (transposed conv then FIR blur; FIR blur then strided
+conv), which agree up to float32 summation order.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from animatablegaussians_torch.ops.upfirdn2d import (
+    _downsample, _fused_leaky_relu, _inverse_haar_transform, _upfirdn2d,
+    _wavelet_upsample, make_kernel)
+
+BLUR_KERNEL = (1, 3, 3, 1)
+
+
+def _randn(shape, generator) -> torch.Tensor:
+    return torch.randn(shape, generator=generator, dtype=torch.float32)
+
+
+class PixelNorm(nn.Module):
+    def forward(self, x):
+        return x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + 1e-8)
+
+
+class EqualLinear(nn.Module):
+    """Equalized-lr linear layer; weight (out, in)."""
+
+    def __init__(self, in_dim, out_dim, bias_init=0.0, lr_mul=1.0,
+                 activation=False, generator=None):
+        super().__init__()
+        self.weight = nn.Parameter(_randn((out_dim, in_dim), generator)
+                                   / lr_mul)
+        self.bias = nn.Parameter(torch.full((out_dim,), float(bias_init)))
+        self.scale = (1.0 / math.sqrt(in_dim)) * lr_mul
+        self.lr_mul = lr_mul
+        self.activation = activation
+
+    def forward(self, x):
+        out = F.linear(x, self.weight * self.scale)
+        if self.activation:
+            return _fused_leaky_relu(out, self.bias * self.lr_mul)
+        return out + self.bias * self.lr_mul
+
+
+class EqualConv2d(nn.Module):
+    """Equalized-lr conv; weight (out, in, k, k)."""
+
+    def __init__(self, in_ch, out_ch, k, stride=1, padding=0, bias=True,
+                 generator=None):
+        super().__init__()
+        self.weight = nn.Parameter(_randn((out_ch, in_ch, k, k), generator))
+        self.bias = nn.Parameter(torch.zeros(out_ch)) if bias else None
+        self.scale = 1.0 / math.sqrt(in_ch * k * k)
+        self.stride, self.padding = stride, padding
+
+    def forward(self, x):
+        return F.conv2d(x, self.weight * self.scale, self.bias,
+                        stride=self.stride, padding=self.padding)
+
+
+class Blur(nn.Module):
+    def __init__(self, kernel, pad):
+        super().__init__()
+        self.kernel, self.pad = make_kernel(kernel), pad
+
+    def forward(self, x):
+        return _upfirdn2d(x, self.kernel, pad=self.pad)
+
+
+class FusedLeakyReLU(nn.Module):
+    def __init__(self, channels):
+        super().__init__()
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x):
+        return _fused_leaky_relu(x, self.bias)
+
+
+def conv_layer(in_ch, out_ch, k, downsample=False, generator=None):
+    """ConvLayer (ref: dual_styleunet.py:329-371): [Blur,] EqualConv2d,
+    FusedLeakyReLU — so the keys are ``.0/.1`` or ``.1/.2``."""
+    layers = []
+    if downsample:
+        p = (len(BLUR_KERNEL) - 2) + (k - 1)
+        layers.append(Blur(BLUR_KERNEL, pad=((p + 1) // 2, p // 2)))
+        stride, padding = 2, 0
+    else:
+        stride, padding = 1, k // 2
+    layers.append(EqualConv2d(in_ch, out_ch, k, stride, padding, bias=False,
+                              generator=generator))
+    layers.append(FusedLeakyReLU(out_ch))
+    return nn.Sequential(*layers)
+
+
+class ConvBlock(nn.Module):
+    def __init__(self, in_ch, out_ch, generator=None):
+        super().__init__()
+        self.conv1 = conv_layer(in_ch, in_ch, 3, generator=generator)
+        self.conv2 = conv_layer(in_ch, out_ch, 3, downsample=True,
+                                generator=generator)
+
+    def forward(self, x):
+        return self.conv2(self.conv1(x))
+
+
+class FromRGB(nn.Module):
+    """FromRGB with downsample, no wavelet (ref: dual_styleunet.py:442-470)."""
+
+    def __init__(self, in_ch, out_ch, generator=None):
+        super().__init__()
+        self.conv = conv_layer(in_ch, out_ch, 1, generator=generator)
+
+    def forward(self, img, skip):
+        img = _downsample(img, make_kernel(BLUR_KERNEL))
+        return img, self.conv(img) + skip
+
+
+class ModulatedConv2d(nn.Module):
+    """Style-modulated conv (ref: dual_styleunet.py:168-300); weight
+    (1, out, in, k, k)."""
+
+    def __init__(self, in_ch, out_ch, k, style_dim, demodulate=True,
+                 upsample=False, generator=None):
+        super().__init__()
+        self.weight = nn.Parameter(_randn((1, out_ch, in_ch, k, k),
+                                          generator))
+        self.modulation = EqualLinear(style_dim, in_ch, bias_init=1.0,
+                                      generator=generator)
+        self.scale = 1.0 / math.sqrt(in_ch * k * k)
+        self.k, self.demodulate, self.upsample = k, demodulate, upsample
+
+    def _weight(self, s):
+        w = self.scale * self.weight[0] * s[None, :, None, None]
+        if self.demodulate:
+            demod = torch.rsqrt(torch.sum(w * w, dim=(1, 2, 3)) + 1e-8)
+            w = w * demod[:, None, None, None]
+        return w
+
+    def _conv(self, x, w):
+        if self.upsample:
+            out = F.conv_transpose2d(x, w.transpose(0, 1), stride=2)
+            p = (len(BLUR_KERNEL) - 2) - (self.k - 1)
+            return _upfirdn2d(out, make_kernel(BLUR_KERNEL) * 4.0,
+                              pad=((p + 1) // 2 + 1, p // 2 + 1))
+        return F.conv2d(x, w, padding=self.k // 2)
+
+    def forward(self, x, style):
+        s = self.modulation(style)                          # (B, in)
+        if s.shape[0] == 1:
+            # one style row modulates every sample: one shared weight and
+            # one batched conv (the frame-batched inference path)
+            return self._conv(x, self._weight(s[0]))
+        return torch.cat([self._conv(x[i:i + 1], self._weight(s[i]))
+                          for i in range(s.shape[0])])
+
+
+class NoiseInjection(nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(1))
+
+    def forward(self, x, noise):
+        return x + self.weight * noise
+
+
+class StyledConv(nn.Module):
+    def __init__(self, in_ch, out_ch, k, style_dim, upsample=False,
+                 generator=None):
+        super().__init__()
+        self.conv = ModulatedConv2d(in_ch, out_ch, k, style_dim,
+                                    upsample=upsample, generator=generator)
+        self.noise = NoiseInjection()
+        self.activate = FusedLeakyReLU(out_ch)
+
+    def forward(self, x, style, noise):
+        return self.activate(self.noise(self.conv(x, style), noise))
+
+
+class ToRGB(nn.Module):
+    """Wavelet-domain ToRGB: out_ch = 4 x image channels."""
+
+    def __init__(self, in_ch, style_dim, out_ch, generator=None):
+        super().__init__()
+        self.conv = ModulatedConv2d(in_ch, out_ch, 1, style_dim,
+                                    demodulate=False, generator=generator)
+        self.bias = nn.Parameter(torch.zeros(1, out_ch, 1, 1))
+
+    def forward(self, x, style, skip=None):
+        out = self.conv(x, style) + self.bias
+        if skip is not None:
+            out = out + _wavelet_upsample(skip, BLUR_KERNEL)
+        return out
+
+
+def _channels(mult: int):
+    return {4: 512, 8: 512, 16: 512, 32: 512, 64: 256 * mult,
+            128: 128 * mult, 256: 64 * mult, 512: 32 * mult,
+            1024: 16 * mult, 2048: 16 * mult, 4096: 16 * mult}
+
+
+class DualStyleUNet(nn.Module):
+    def __init__(self, inp_size: int, inp_ch: int, out_ch: int,
+                 out_size: int, style_dim: int, n_mlp: int,
+                 middle_size: int = 8, channel_multiplier: int = 2,
+                 lr_mlp: float = 0.01, channel_max: int = 512,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        g = generator
+        self.middle_log_size = int(math.log2(middle_size))
+        self.log_size = int(math.log2(out_size)) - 1
+        if inp_size < 4 * middle_size:
+            raise ValueError(f"inp_size {inp_size} must be >= "
+                             f"{4 * middle_size}")
+        channels = {k: min(v, channel_max)
+                    for k, v in _channels(channel_multiplier).items()}
+
+        self.style = nn.Sequential(PixelNorm(), *[
+            EqualLinear(style_dim, style_dim, lr_mul=lr_mlp, activation=True,
+                        generator=g) for _ in range(n_mlp)])
+
+        enc_in = channels[inp_size // 2]
+        self.conv_in = conv_layer(inp_ch, enc_in, 3, downsample=True,
+                                  generator=g)
+        self.from_rgbs = nn.ModuleList()
+        self.cond_convs = nn.ModuleList()
+        comb = [conv_layer(enc_in * 2, enc_in, 3, generator=g)]
+        in_ch = enc_in
+        for i in range(int(math.log2(inp_size)) - 2,
+                       self.middle_log_size - 1, -1):
+            out_c = channels[2 ** i]
+            self.from_rgbs.append(FromRGB(inp_ch, in_ch, generator=g))
+            self.cond_convs.append(ConvBlock(in_ch, out_c, generator=g))
+            comb.append(conv_layer(
+                out_c * 2 if i > self.middle_log_size else out_c, out_c, 3,
+                generator=g))
+            in_ch = out_c
+        self.comb_convs = nn.ModuleList(comb)
+
+        dec = []
+        in_ch = channels[middle_size]
+        for i in range(self.middle_log_size + 1, self.log_size + 1):
+            dec.append((in_ch, channels[2 ** i]))
+            in_ch = channels[2 ** i]
+        for branch in ("1", "2"):
+            convs, rgbs = nn.ModuleList(), nn.ModuleList()
+            for (cin, cout) in dec:
+                convs.append(StyledConv(cin, cout, 3, style_dim,
+                                        upsample=True, generator=g))
+                convs.append(StyledConv(cout, cout, 3, style_dim,
+                                        generator=g))
+                rgbs.append(ToRGB(cout, style_dim, out_ch * 4, generator=g))
+            setattr(self, f"convs{branch}", convs)
+            setattr(self, f"to_rgbs{branch}", rgbs)
+
+        # fixed noise buffers (ref: dual_styleunet.py:717-721)
+        self.num_layers = (self.log_size - self.middle_log_size) * 2
+        self.noises = nn.Module()
+        for layer_idx in range(self.num_layers):
+            res = (layer_idx + 2 * (self.middle_log_size + 1)) // 2
+            self.noises.register_buffer(
+                f"noise_{layer_idx}", _randn((1, 1, 2 ** res, 2 ** res), g))
+
+    def _decode(self, convs, rgbs, latent, cond_list, view_feature):
+        noise = [getattr(self.noises, f"noise_{i}")
+                 for i in range(self.num_layers)]
+        n_comb = len(self.comb_convs)
+        out = skip = None
+        for stage, rgb in enumerate(rgbs):
+            i = 2 * stage
+            if i == 0:
+                out = self.comb_convs[-1](cond_list[-1])
+            elif i < 2 * n_comb:
+                out = torch.cat([out, cond_list[-1 - i // 2]], dim=1)
+                out = self.comb_convs[-1 - i // 2](out)
+            out = convs[i](out, latent, noise[i])
+            out = convs[i + 1](out, latent, noise[i + 1])
+            skip = rgb(out, latent, skip)
+            if view_feature is not None and i == 8:
+                out = out + F.interpolate(
+                    view_feature.permute(0, 3, 1, 2), size=out.shape[2:],
+                    mode="bilinear", align_corners=False)
+        return _inverse_haar_transform(skip)
+
+    def forward(self, style, cond_img, view_feature1=None,
+                view_feature2=None):
+        """style (B or 1, style_dim); cond_img (B, inp, inp, inp_ch) NHWC;
+        view features NHWC. Returns (B, out, out, 2 * out_ch) NHWC:
+        [front, back]."""
+        latent = self.style(style)
+        img = cond_img.permute(0, 3, 1, 2)
+        cond_out = self.conv_in(img)
+        cond_list = [cond_out]
+        for frgb, cblock in zip(self.from_rgbs, self.cond_convs):
+            img, cond_out = frgb(img, cond_out)
+            cond_out = cblock(cond_out)
+            cond_list.append(cond_out)
+        image1 = self._decode(self.convs1, self.to_rgbs1, latent, cond_list,
+                              view_feature1)
+        image2 = self._decode(self.convs2, self.to_rgbs2, latent, cond_list,
+                              view_feature2)
+        return torch.cat([image1, image2], dim=1).permute(0, 2, 3, 1)
