@@ -1,5 +1,6 @@
-"""AvatarNet, novel-pose render path: pose map -> three DualStyleUNet heads
--> masked-texel select -> LBS skin -> tile splat. Forward only.
+"""AvatarNet: pose map -> three DualStyleUNet heads -> masked-texel select
+-> LBS skin -> tile splat, for the novel-pose render path and, with
+``training=True``, under autograd for the train step.
 
 Port of ``animatablegaussians_tpu/models/avatar.py:38-187,251-373,419-567``
 as an ``nn.Module``. The point set is the JAX package's block-packed
@@ -7,12 +8,16 @@ masked-texel layout (``texel_block`` consecutive texels per block, with a
 ``valid`` mask for the pad texels), so per-Gaussian tensors compare index
 for index with the JAX package and sort ties agree. Parameters live in the
 module; ``utils/convert.params_from_jax`` carries the JAX parameters
-across. Not ported yet: mean hands (``hand_vals``), pose-map regeneration
-(``get_pose_map``), random styles and training-time view jitter.
+across. The training-time view-direction jitter takes its (N, 3) normal
+noise from the caller (``draws``), so a test can hand both packages the
+same numbers. Not ported yet: mean hands (``hand_vals``) and pose-map
+regeneration (``get_pose_map``). Random styles are refused: the shipped
+configs turn them off (``configs/avatarrex_zzr/avatar.yaml:78``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -34,12 +39,16 @@ class AvatarNet(nn.Module):
     def __init__(self, opt, cano_smpl_map: np.ndarray,
                  init_pts_lbs: np.ndarray,
                  cano_nml_map: Optional[np.ndarray] = None,
-                 device="cpu", seed: int = 0):
+                 device="cuda", seed: int = 0):
         """cano_smpl_map: (H, 2H, 3) canonical position map (front|back);
         init_pts_lbs: (N_valid, J) per-point LBS weights. Parameters are
-        drawn from a ``torch.Generator`` seeded with ``seed``."""
+        drawn from a ``torch.Generator`` seeded with ``seed``; the module
+        lives on the card unless ``device`` says otherwise."""
         super().__init__()
         opt = dict(opt or {})
+        if opt.get("random_style", False):
+            raise NotImplementedError("random_style is not ported (the "
+                                      "shipped configs set it false)")
         self.with_viewdirs = opt.get("with_viewdirs", True)
         self.map_h, self.map_w = cano_smpl_map.shape[:2]
         self.inp_size = self.map_h // 2
@@ -165,8 +174,10 @@ class AvatarNet(nn.Module):
             -1, 4, 4)
 
     # -- view-direction conditioning (ref: avatar.py:126-147) -------------
-    def _viewdir_half_map(self, items):
-        """One frame's normal.viewdir dots scattered to the (H/2, W/2) map."""
+    def _viewdir_half_map(self, items, noise=None):
+        """One frame's normal.viewdir dots scattered to the (H/2, W/2) map;
+        ``noise`` (N, 3) standard normal jitters the directions in training
+        (JAX avatar.py:319-322)."""
         pt_mats = self._point_mats(items["cano2live_jnt_mats"])
         R = pt_mats[:, :3, :3]
         live_pts = (torch.einsum("nxy,ny->nx", R, self.init_points)
@@ -177,6 +188,10 @@ class AvatarNet(nn.Module):
         viewdirs = cam_pos[None] - live_pts
         viewdirs = viewdirs / torch.clamp(
             torch.linalg.norm(viewdirs, dim=-1, keepdim=True), min=1e-3)
+        if noise is not None:
+            viewdirs = viewdirs + 0.1 * noise
+            viewdirs = viewdirs / torch.clamp(
+                torch.linalg.norm(viewdirs, dim=-1, keepdim=True), min=1e-3)
         dots = torch.sum(live_nmls * viewdirs, dim=-1)
         return self._scatter_masked_half(dots)
 
@@ -206,6 +221,22 @@ class AvatarNet(nn.Module):
         out["rotations"] = quat_ops.mat_to_quat(rot)
         return out
 
+    # -- heads one at a time, for the pretrain step (ref: avatar.py:93-124) --
+    def get_positions(self, pose_map):
+        """(S, S, 3) pose map -> (N, 3) canonical positions."""
+        out = self.position_net(self.constant_style(), pose_map[None])
+        return 0.05 * self._select_masked_dual([out]) + self.cano_gaussian.xyz
+
+    def get_others(self, pose_map):
+        """(S, S, 3) pose map -> activated opacity (N, 1), scales (N, 3)
+        and unit rotations (N, 4)."""
+        out = self.other_net(self.constant_style(), pose_map[None])
+        others = self._select_masked_dual([out])                # (N, 8)
+        g = self.cano_gaussian
+        return (torch.sigmoid(others[:, 0:1] + g.opacity),
+                torch.exp(others[:, 1:4] + g.scaling),
+                quat_ops.normalize(others[:, 4:8] + g.rotation))
+
     # -- render (ref: avatar.py:161-239) ----------------------------------
     def _head_outputs(self, pose_maps, front_vd, back_vd):
         """(B, S, S, 3) pose maps -> three raw (B, S, S, 2C) outputs. With
@@ -218,7 +249,7 @@ class AvatarNet(nn.Module):
                                view_feature2=back_vd))
 
     def _finish_render(self, items, pos_out, other_out, color_out, bg,
-                       img_w, img_h, full=True):
+                       img_w, img_h, full=True, plain=False):
         """Masked select -> Gaussian attributes -> LBS -> splat for ONE
         frame, from raw (1, S, S, 2C) head outputs."""
         sel = self._select_masked_dual([pos_out, other_out, color_out])
@@ -240,7 +271,8 @@ class AvatarNet(nn.Module):
                     gaussian_vals["rotations"],
                     gaussian_vals["opacity"].reshape(-1),
                     gaussian_vals["colors"], bg, items["extr"],
-                    items["intr"], img_w, img_h, valid_mask=self.valid)
+                    items["intr"], img_w, img_h, valid_mask=self.valid,
+                    plain=plain)
         ret = dict(rgb_map=out["render"], mask_map=out["mask"],
                    depth_map=out["depth"], offset=offset,
                    pos_map=self._net_out_to_map(pos_out, 3),
@@ -254,21 +286,32 @@ class AvatarNet(nn.Module):
         return torch.as_tensor(bg_color, dtype=torch.float32,
                                device=self.lbs.device)
 
-    @torch.no_grad()
     def render(self, items: dict, bg_color=(0.0, 0.0, 0.0),
-               img_w: Optional[int] = None,
-               img_h: Optional[int] = None) -> dict:
+               img_w: Optional[int] = None, img_h: Optional[int] = None,
+               training: bool = False, draws: Optional[dict] = None,
+               plain: bool = False) -> dict:
         """One frame. ``items``: tensors on the module's device —
-        smpl_pos_map (S, S, >=3), cano2live_jnt_mats (J, 4, 4), extr, intr."""
-        pose_map = items["smpl_pos_map"][..., :3]
-        front_vd = back_vd = None
-        if self.with_viewdirs:
-            front_vd, back_vd = self._encode_viewdirs(
-                self._viewdir_half_map(items)[None])
-        pos_out, other_out, color_out = self._head_outputs(
-            pose_map[None], front_vd, back_vd)
-        return self._finish_render(items, pos_out, other_out, color_out,
-                                   self._bg(bg_color), img_w, img_h)
+        smpl_pos_map (S, S, >=3), cano2live_jnt_mats (J, 4, 4), extr, intr.
+
+        By default a novel-pose render without autograd. ``training=True``
+        records the graph for the train step and leaves out the outputs it
+        does not use; ``draws["viewdir_noise"]`` (N, 3), if given, jitters
+        the view directions. ``plain=True`` splats through the kernels'
+        plain versions."""
+        grad = contextlib.nullcontext() if training else torch.no_grad()
+        with grad:
+            pose_map = items["smpl_pos_map"][..., :3]
+            front_vd = back_vd = None
+            if self.with_viewdirs:
+                noise = (draws or {}).get("viewdir_noise") if training \
+                    else None
+                front_vd, back_vd = self._encode_viewdirs(
+                    self._viewdir_half_map(items, noise)[None])
+            pos_out, other_out, color_out = self._head_outputs(
+                pose_map[None], front_vd, back_vd)
+            return self._finish_render(items, pos_out, other_out, color_out,
+                                       self._bg(bg_color), img_w, img_h,
+                                       full=not training, plain=plain)
 
     @torch.no_grad()
     def render_sequence(self, items_seq: dict, bg_color=(0.0, 0.0, 0.0),

@@ -1,4 +1,4 @@
-"""Tile-based 3D Gaussian splatting, forward only, for PyTorch on CUDA.
+"""Tile-based 3D Gaussian splatting for PyTorch on CUDA, differentiable.
 
 Port of ``animatablegaussians_tpu/ops/rasterize``:
 
@@ -7,7 +7,8 @@ Port of ``animatablegaussians_tpu/ops/rasterize``:
                       kernel ``csrc/expand.cu``), stable (tile, depth) sort,
                       per-tile ranges.
   3. ``blend``      - per-tile front-to-back compositing (CUDA kernel
-                      ``csrc/blend.cu``).
+                      ``csrc/blend.cu``) and its gradient (CUDA kernel
+                      ``csrc/blend_bwd.cu``), joined by ``BlendTiles``.
 """
 
 from .api import render

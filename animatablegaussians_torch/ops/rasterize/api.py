@@ -1,11 +1,16 @@
-"""Public rasterization API, forward only.
+"""Public rasterization API, differentiable.
 
-Port of ``animatablegaussians_tpu/ops/rasterize/api.py:66-78,238-344,370-391``
+Port of ``animatablegaussians_tpu/ops/rasterize/api.py:66-78,206-344,370-391``
 with the same output contract: colour, depth, alpha mask, radii, visibility,
 screen-space means and the pair count.
 
 Composition: preprocess -> packed per-Gaussian rows -> binning (pair
-expansion kernel + sort) -> tile blend kernel -> background blend.
+expansion kernel + sort) -> tile blend kernel -> background blend. The
+gradient flows back through the blend's backward kernel
+(``blend.BlendTiles``), the row packing and preprocess to ``means3d``,
+``scales``, ``rotations``, ``opacities`` and ``colors``; binning is integer
+bookkeeping and runs without autograd, as the JAX package's binning gets no
+gradient.
 """
 
 from __future__ import annotations
@@ -13,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from .binning import bin_gaussians
-from .blend import TILE, blend_tiles, blend_tiles_plain
+from .blend import TILE, BlendTiles
 from .preprocess import preprocess
 
 
@@ -62,9 +67,10 @@ def render(means3d, scales, rotations, opacities, colors, bg_color, extr,
     (3,); extr (4, 4) world->view; intr (3, 3). ``valid_mask`` (N,) bool
     marks points that are never binned (block-packing pads).
 
-    ``plain=True`` runs the kernels' plain PyTorch versions on whatever
-    device the tensors are on: the reference the kernels are checked
-    against on the GPU. On the CPU both settings run the plain versions."""
+    ``plain=True`` runs the kernels' plain PyTorch versions, forward and
+    backward, on whatever device the tensors are on: the reference the
+    kernels are checked against on the GPU. On the CPU both settings run
+    the plain versions."""
     tan_fovx = img_w / (2.0 * intr[0, 0])
     tan_fovy = img_h / (2.0 * intr[1, 1])
     viewmatrix, projmatrix = _full_projection(extr, intr, img_w, img_h)
@@ -79,11 +85,12 @@ def render(means3d, scales, rotations, opacities, colors, bg_color, extr,
 
     grid_x = -(-img_w // TILE)
     grid_y = -(-img_h // TILE)
-    bins = bin_gaussians(pre.means2d, pre.depths, pre.radii, pre.valid,
-                         img_w, img_h, TILE, plain=plain)
-    blend = blend_tiles_plain if plain else blend_tiles
-    color, depth, t_final = blend(rows, bins.gid, bins.starts, grid_x,
-                                  grid_y, img_w, img_h)
+    with torch.no_grad():
+        bins = bin_gaussians(pre.means2d, pre.depths, pre.radii, pre.valid,
+                             img_w, img_h, TILE, plain=plain)
+    color, depth, t_final = BlendTiles.apply(rows, bins.gid, bins.starts,
+                                             grid_x, grid_y, img_w, img_h,
+                                             plain)
     color = color + t_final[..., None] * bg_color.reshape(1, 1, 3)
     return dict(render=color, depth=depth, mask=1.0 - t_final,
                 radii=pre.radii, visibility_filter=pre.radii > 0,

@@ -1,4 +1,4 @@
-"""Full-width synthetic novel-pose render fixture for the port.
+"""Full-width synthetic render and train fixture for the port.
 
 Rebuilds the JAX bench fixture (``bench.py:50-116``) with the port: a
 1024x2048 canonical map (517,832 masked texels, block-packed to 531,520
@@ -7,7 +7,13 @@ view-direction conditioning on, 1500x2048 images, random weights from a
 seed, and the position/other heads' ToRGB weights zeroed so the Gaussians
 keep their ``create_from_pcd`` attributes (``bench.py::_zero_head_outputs``).
 A sequence of F frames jitters the camera per frame (``bench.py:265-276``).
-``chip_smoke.py`` renders and times this fixture on the GPU.
+The train fixture adds the frame's colour image, mask and boundary mask,
+and the constants below hold the JAX train bench's settings
+(``bench.py:119-142``): Adam at 5e-4 on an 800k-step cosine schedule, L1 +
+0.1 LPIPS on a 512 crop + 0.005 offset, a random background, and LPIPS
+weights drawn at random from seed 7 (no LPIPS weight files are in the
+repository). ``chip_smoke.py`` renders, trains and times this fixture on
+the GPU.
 """
 
 from __future__ import annotations
@@ -21,6 +27,11 @@ from animatablegaussians_torch.utils import synthetic
 MAP_H = 1024                # canonical map 1024x2048 -> CNN in 512^2, out 1024^2
 IMG_W, IMG_H = 1500, 2048   # AvatarReX camera resolution
 RENDER_KEYS = ("smpl_pos_map", "cano2live_jnt_mats", "extr", "intr")
+TRAIN_KEYS = RENDER_KEYS + ("color_img", "mask_img", "boundary_mask_img")
+LR_INIT, ITER_NUM = 5e-4, 800_000
+LOSS_WEIGHT = dict(l1=1.0, lpips=0.1, offset=0.005)
+PATCH_SIZE = 512
+LPIPS_SEED = 7
 
 
 @torch.no_grad()
@@ -34,9 +45,10 @@ def zero_head_outputs(net: AvatarNet, names=("position_net", "other_net")):
 
 
 def build(device, map_h: int = MAP_H, img_w: int = IMG_W,
-          img_h: int = IMG_H, channel_max: int = 512, seed: int = 0):
-    """-> (net, items): the AvatarNet and one frame's render inputs, as
-    tensors on ``device``."""
+          img_h: int = IMG_H, channel_max: int = 512, seed: int = 0,
+          keys=RENDER_KEYS):
+    """-> (net, items): the AvatarNet and one frame's ``keys`` (the render
+    inputs; ``TRAIN_KEYS`` for a train step), as tensors on ``device``."""
     pos, nml, lbs = synthetic.make_cano_map(map_h=map_h)
     net = AvatarNet({"with_viewdirs": True, "channel_max": channel_max},
                     pos, lbs, cano_nml_map=nml, device=device, seed=seed)
@@ -44,7 +56,7 @@ def build(device, map_h: int = MAP_H, img_w: int = IMG_W,
     items_np = synthetic.make_items(img_w=img_w, img_h=img_h,
                                     cano_pos_map=pos)
     items = {k: torch.as_tensor(items_np[k], device=device)
-             for k in RENDER_KEYS}
+             for k in keys}
     return net, items
 
 

@@ -1,5 +1,7 @@
 """Carry the JAX package's parameters across to the port.
 
+Adam's state needs no carrying: both packages start it from zero moments.
+
 ``params_from_jax`` is the inverse of
 ``animatablegaussians_tpu/training/checkpoint.py::import_avatar_params``
 (checkpoint.py:108-216): it takes the JAX ``AvatarNet`` parameter tree as
@@ -81,4 +83,18 @@ def params_from_jax(params_np: dict) -> dict:
             sd[f"viewdir_net.{idx}.bias"] = _t(vp[conv]["bias"])
     for k, v in params_np["cano_gaussian"].items():
         sd[f"cano_gaussian.{k}"] = _t(v)
+    return sd
+
+
+def lpips_from_jax(params_np: dict) -> dict:
+    """JAX LPIPS params (``training/lpips.py`` ``convs`` of HWIO weights
+    and biases, ``lins`` of (C,) vectors; numpy leaves) -> the port
+    ``training.lpips.LPIPS`` state dict: the inverse of the layout
+    ``load_torch_weights`` reads (lpips.py:71-109)."""
+    sd = {}
+    for i, cp in enumerate(params_np["convs"]):
+        sd[f"convs.{i}.weight"] = _conv_w(cp["weight"])
+        sd[f"convs.{i}.bias"] = _t(cp["bias"])
+    for i, lin in enumerate(params_np["lins"]):
+        sd[f"lins.{i}"] = _t(lin)
     return sd

@@ -1,8 +1,9 @@
 """Build and load the hand-written Hopper kernels.
 
 Every ``*.cu`` file under ``animatablegaussians_torch/csrc/`` is compiled by
-``nvcc`` for ``sm_90a`` into one shared library with a plain C interface,
-which is loaded with ``ctypes``. The build happens at first use, into
+its own ``nvcc`` for ``sm_90a`` (all started together), and the objects are
+linked into one shared library with a plain C interface, which is loaded
+with ``ctypes``. The build happens at first use, into
 ``build/kernels-<hash>/`` at the repository root (git-ignored), keyed on a
 hash of the sources, the flags and ``nvcc --version``, so a fresh checkout builds everything itself
 and an unchanged one reuses its library. Nothing here runs at import time.
@@ -21,7 +22,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               # no multiply-add contraction: the kernels then round exactly
               # like the element-wise PyTorch ops of their plain versions
               "-fmad=false")
@@ -31,6 +32,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "ag_expand_pairs": [_P, _P, _P, _I, _I, _P, _P, _P],
     "ag_blend_forward": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    "ag_blend_backward": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                          _P, _P, _P],
 }
 
 _lib = None
@@ -69,13 +72,30 @@ def load():
     log = ""
     if not so.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f"libagtorch.so.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp)] + [str(s) for s in sources]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        log = res.stdout + res.stderr
+        # nvcc reads a file's kind from its extension: keep ".o" last
+        objs = [out_dir / f"{src.stem}.{os.getpid()}.o" for src in sources]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                                   str(src)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(sources, objs)]
+        failed = []
+        for src, proc in zip(sources, procs):
+            out = proc.communicate()[0]
+            log += f"== {src.name}\n{out}"
+            if proc.returncode != 0:
+                failed.append(src.name)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+        tmp = out_dir / f"libagtorch.{os.getpid()}.so"
+        res = subprocess.run([nvcc, "-shared", "-o", str(tmp)]
+                             + [str(o) for o in objs], capture_output=True,
+                             text=True)
+        log += res.stdout + res.stderr
         if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{log}")
         os.replace(tmp, so)
+        for obj in objs:
+            obj.unlink()
     build_info.update(seconds=time.perf_counter() - t0, log=log,
                       path=str(so), nvcc=version.strip().splitlines()[-1])
     lib = ctypes.CDLL(str(so))

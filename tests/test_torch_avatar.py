@@ -54,7 +54,7 @@ def pair():
                           backend="ref", k_max=1024, max_dup=64,
                           max_active_tiles=0))
     params = jnet.init(jax.random.PRNGKey(0))
-    tnet = TAvatarNet(opt, pos, lbs, cano_nml_map=nml)
+    tnet = TAvatarNet(opt, pos, lbs, cano_nml_map=nml, device="cpu")
     tnet.load_state_dict(params_from_jax(_params_np(params)))
     items = jsyn.make_items(img_w=IMG, img_h=IMG, cano_pos_map=pos)
     keys = ("smpl_pos_map", "cano2live_jnt_mats", "extr", "intr")

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from animatablegaussians_tpu.ops.rasterize import RasterizeConfig
@@ -31,7 +32,7 @@ TILE = 16
 GX, GY = -(-W // TILE), -(-H // TILE)
 
 
-def make_scene(n=60, seed=0, n_pad=0):
+def make_scene(n=60, seed=0, n_pad=0, w=W, h=H):
     rng = np.random.default_rng(seed)
     means = rng.uniform([-0.8, -0.6, 2.0], [0.8, 0.6, 4.0],
                         (n, 3)).astype(np.float32)
@@ -41,27 +42,28 @@ def make_scene(n=60, seed=0, n_pad=0):
     opac = rng.uniform(0.2, 0.9, (n,)).astype(np.float32)
     colors = rng.uniform(0, 1, (n, 3)).astype(np.float32)
     extr = np.eye(4, dtype=np.float32)
-    intr = np.array([[60.0, 0, W / 2], [0, 60.0, H / 2], [0, 0, 1]],
+    intr = np.array([[60.0, 0, w / 2], [0, 60.0, h / 2], [0, 0, 1]],
                     np.float32)
     valid = np.ones(n, bool)
     valid[rng.choice(n, n_pad, replace=False)] = False
     return dict(means=means, scales=scales, q=q, opac=opac, colors=colors,
-                extr=extr, intr=intr, valid=valid)
+                extr=extr, intr=intr, valid=valid, w=w, h=h)
 
 
 def _pre_args(s, mod):
     """Arguments of preprocess for the JAX (mod=japi) or port side."""
+    w, h = s["w"], s["h"]
     if mod is japi:
         vm, pm = japi._full_projection_traced(jnp.asarray(s["extr"]),
-                                              jnp.asarray(s["intr"]), W, H)
+                                              jnp.asarray(s["intr"]), w, h)
         conv = jnp.asarray
     else:
         vm, pm = tapi._full_projection(torch.as_tensor(s["extr"]),
-                                       torch.as_tensor(s["intr"]), W, H)
+                                       torch.as_tensor(s["intr"]), w, h)
         conv = torch.as_tensor
     fx, fy = float(s["intr"][0, 0]), float(s["intr"][1, 1])
     return (conv(s["means"]), conv(s["scales"]), conv(s["q"]), vm, pm,
-            W / (2 * fx), H / (2 * fy), W, H)
+            w / (2 * fx), h / (2 * fy), w, h)
 
 
 @pytest.mark.parametrize("seed", [0, 4])
@@ -143,6 +145,9 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         tblend.blend_tiles(torch.empty((2, 10), device="meta"), None, None,
                            1, 1, 16, 16)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tblend.blend_backward(torch.empty((2, 10), device="meta"), None,
+                              None, 1, 1, 16, 16, *[None] * 6)
 
 
 def _port_bins(s):
@@ -150,7 +155,7 @@ def _port_bins(s):
     rows = tapi._pack_rows(pre, torch.as_tensor(s["opac"]),
                            torch.as_tensor(s["colors"]))
     bins = tbin.bin_gaussians(pre.means2d, pre.depths, pre.radii, pre.valid,
-                              W, H, TILE)
+                              s["w"], s["h"], TILE)
     return rows, bins
 
 
@@ -188,6 +193,33 @@ def test_plain_blend_matches_blend_tiles_ref():
     _compare_blend(got, _images(want), atol=1e-5)
 
 
+def _chunk_layout(rows, bins, n_tiles, kb=128):
+    """The port's tile ranges as blend_chunks' ragged input: (C, 16, kb)
+    chunk data, per-chunk pair count, tile id and first-chunk flag, and the
+    (C, kb) gids of each chunk's slots (N past a chunk's pairs)."""
+    counts = (bins.starts[1:] - bins.starts[:-1]).numpy()
+    n_rows = rows.shape[0]
+    rows_np = np.concatenate([rows.detach().numpy(),
+                              np.zeros((1, 10), np.float32)])
+    data, n, tid, first, gids = [], [], [], [], []
+    for t in range(n_tiles):
+        a = int(bins.starts[t])
+        for c in range(-(-int(counts[t]) // kb)):
+            m = min(kb, int(counts[t]) - c * kb)
+            ids = np.full(kb, n_rows)
+            ids[:m] = bins.gid[a + c * kb:a + c * kb + m].numpy()
+            blk = np.zeros((16, kb), np.float32)
+            blk[:10] = rows_np[ids].T
+            data.append(blk)
+            n.append(m)
+            tid.append(t)
+            first.append(int(c == 0))
+            gids.append(ids)
+    i32 = lambda v: jnp.asarray(np.asarray(v, np.int32))
+    return (jnp.asarray(np.stack(data)), i32(n), i32(tid), i32(first),
+            np.stack(gids))
+
+
 def test_plain_blend_matches_ragged_pallas_interpret():
     """Against blend_chunks (the _fwd_chunk_kernel path) in interpret mode,
     on a scene dense enough that tiles span several 128-pair chunks, so the
@@ -198,24 +230,8 @@ def test_plain_blend_matches_ragged_pallas_interpret():
     rows, bins = _port_bins(s)
     counts = (bins.starts[1:] - bins.starts[:-1]).numpy()
     assert counts.max() > 128
-    kb = 128
-    rows_np = np.concatenate([rows.numpy(), np.zeros((1, 10), np.float32)])
-    data, n, tid, first = [], [], [], []
-    for t in range(GX * GY):
-        a = int(bins.starts[t])
-        for c in range(-(-int(counts[t]) // kb)):
-            m = min(kb, int(counts[t]) - c * kb)
-            ids = np.full(kb, rows.shape[0])
-            ids[:m] = bins.gid[a + c * kb:a + c * kb + m].numpy()
-            blk = np.zeros((16, kb), np.float32)
-            blk[:10] = rows_np[ids].T
-            data.append(blk)
-            n.append(m)
-            tid.append(t)
-            first.append(int(c == 0))
-    i32 = lambda v: jnp.asarray(np.asarray(v, np.int32))
-    out = blend_chunks(jnp.asarray(np.stack(data)), i32(n), i32(tid),
-                       i32(first), i32(tid), GX * GY, GX, TILE)
+    data, n, tid, first, _ = _chunk_layout(rows, bins, GX * GY)
+    out = blend_chunks(data, n, tid, first, tid, GX * GY, GX, TILE)
     out = np.where((counts > 0)[:, None, None], np.asarray(out),
                    np.array([0, 0, 0, 0, 1, 0, 0, 0], np.float32))
     got = tblend.blend_tiles(rows, bins.gid, bins.starts, GX, GY, W, H)
@@ -253,56 +269,227 @@ def test_render_matches_jax(seed, n_pad):
     assert not got["visibility_filter"][~s["valid"]].any()
 
 
-def test_full_fixture_pair_count_matches_jax():
+def _kdtree_knn(query, ref, k=4, **_):
+    """Exact k nearest neighbours by a k-d tree: squared distances (Q, k)
+    float32 and indices (Q, k) int32, ascending, the point itself first."""
+    from scipy.spatial import cKDTree
+    q = np.asarray(query, np.float64)
+    d, i = cKDTree(np.asarray(ref, np.float64)).query(q, k=k)
+    return (d ** 2).astype(np.float32), i.astype(np.int32)
+
+
+def test_full_fixture_pair_count_matches_jax(monkeypatch):
     """At full width (the chip_smoke.py fixture: 531,520 block-packed
     Gaussians with create_from_pcd attributes, skinned, 1500x2048) the
-    port's preprocess + pair count equals the JAX package's, and both equal
-    the reference chip_smoke.py holds the GPU run to. The fixture comes
-    from the JAX package's synthetic module and each side takes its own
-    mat_to_quat; only the KNN is substituted: exact distances (a k-d tree)
-    stand in for the brute-force KNN, which is too slow on the CPU at this
-    size; its float32 expansion moves the count by ~0.02%."""
+    port's pair count equals the JAX package's, and both equal the
+    reference chip_smoke.py holds the GPU run to. Each side is its own
+    package's code end to end: the JAX package's synthetic fixture,
+    AvatarNet (block-packed point set, create_from_pcd, transform_cano2live
+    with its ops/quat), preprocess and tile_rect, against the port's. Only
+    the KNN is substituted, on both sides: exact distances from a k-d tree
+    stand in for the brute-force KNN, too slow on the CPU at this size; its
+    float32 expansion moves the count by ~0.02%."""
     import chip_smoke
-    from scipy.spatial import cKDTree
 
-    from animatablegaussians_tpu.ops import quat as jquat
+    from animatablegaussians_tpu.models import gaussian_model as jgm
+    from animatablegaussians_tpu.models.avatar import AvatarNet as JNet
     from animatablegaussians_tpu.utils import synthetic
-    from animatablegaussians_torch.ops import quat as tquat
+    from animatablegaussians_torch.models import gaussian_model as tgm
+    from animatablegaussians_torch.models.avatar import AvatarNet as TNet
 
-    pos, _, lbs = synthetic.make_cano_map(1024)
-    flat = (np.linalg.norm(pos, axis=-1) > 0).reshape(-1)
-    blocks = np.nonzero(flat.reshape(-1, 8).any(axis=1))[0]
-    t = (blocks[:, None] * 8 + np.arange(8)[None]).reshape(-1)
-    valid = flat[t]
-    pts = pos.reshape(-1, 3)[t]
-    assert (len(t), int(valid.sum())) == (531_520, 517_832)
-    d, _ = cKDTree(pts.astype(np.float64)).query(pts, k=4)
-    scale = np.sqrt(np.maximum((d[:, 1:] ** 2).mean(-1), 1e-7))
-    scales = np.repeat(scale.astype(np.float32)[:, None], 3, axis=1)
-    lbs_pad = np.zeros((len(t), lbs.shape[1]), np.float32)
-    lbs_pad[valid] = lbs
+    monkeypatch.setattr(jgm, "knn", lambda q, r, k=4: tuple(
+        jnp.asarray(a) for a in _kdtree_knn(q, r, k)))
+    monkeypatch.setattr(tgm, "knn", lambda q, r, k=4: tuple(
+        torch.as_tensor(a) for a in _kdtree_knn(q, r, k)))
+    pos, nml, lbs = synthetic.make_cano_map(1024)
+    opt = {"with_viewdirs": True, "channel_max": 8}
     items = synthetic.make_items(img_w=1500, img_h=2048, cano_pos_map=pos)
-    mats = (lbs_pad @ items["cano2live_jnt_mats"].reshape(-1, 16)).reshape(
-        -1, 4, 4)
-    live = (np.einsum("nij,nj->ni", mats[:, :3, :3], pts)
-            + mats[:, :3, 3]).astype(np.float32)
     fx, fy = float(items["intr"][0, 0]), float(items["intr"][1, 1])
+    jnet = JNet(opt, pos, lbs, cano_nml_map=nml)
+    g = jnet.init(jax.random.PRNGKey(0))["cano_gaussian"]
+    tnet = TNet(opt, pos, lbs, cano_nml_map=nml, device="cpu")
+    tg = tnet.cano_gaussian
+    assert (jnet.n_points, jnet.n_valid) == (531_520, 517_832)
     counts = {}
-    for conv, m2q, proj, prep, rect in (
-            (jnp.asarray, jquat.mat_to_quat, japi._full_projection_traced,
-             jpreprocess, jbin.tile_rect),
-            (torch.as_tensor, tquat.mat_to_quat, tapi._full_projection,
-             tpreprocess, tbin.tile_rect)):
-        vm, pm = proj(conv(items["extr"]), conv(items["intr"]), 1500, 2048)
-        rots = m2q(conv(np.ascontiguousarray(mats[:, :3, :3])))
-        pre = prep(conv(live), conv(scales), rots, vm, pm,
-                   1500 / (2 * fx), 2048 / (2 * fy), 1500, 2048)
-        radii = np.where(valid, np.asarray(pre.radii), 0)
-        x0, y0, x1, y1 = (np.asarray(a) for a in rect(
-            pre.means2d, conv(radii), 94, 128, TILE))
+    for side, conv, vals, scales, net, proj, prep, rect in (
+            ("jax", jnp.asarray, dict(positions=g.get_xyz,
+                                      rotations=g.get_rotation),
+             g.get_scaling, jnet, japi._full_projection_traced, jpreprocess,
+             jbin.tile_rect),
+            ("port", torch.as_tensor, dict(positions=tg.xyz,
+                                           rotations=tg.get_rotation),
+             tg.get_scaling, tnet, tapi._full_projection, tpreprocess,
+             tbin.tile_rect)):
+        with torch.no_grad():
+            it = {k: conv(items[k]) for k in ("cano2live_jnt_mats", "extr",
+                                              "intr")}
+            live = net.transform_cano2live(vals, it)
+            vm, pm = proj(it["extr"], it["intr"], 1500, 2048)
+            pre = prep(live["positions"], scales, live["rotations"], vm, pm,
+                       1500 / (2 * fx), 2048 / (2 * fy), 1500, 2048)
+            valid = np.asarray(jnet.valid_np)
+            radii = np.where(valid, np.asarray(pre.radii), 0)
+            x0, y0, x1, y1 = (np.asarray(a) for a in rect(
+                pre.means2d, conv(radii), 94, 128, TILE))
         live_ok = np.asarray(pre.valid) & valid
-        counts[prep] = int(np.where(live_ok, (x1 - x0) * (y1 - y0), 0).sum())
-    n_jax, n_port = counts[jpreprocess], counts[tpreprocess]
+        counts[side] = int(np.where(live_ok, (x1 - x0) * (y1 - y0), 0).sum())
+    n_jax, n_port = counts["jax"], counts["port"]
     # float32 preprocess in two frameworks: a handful of ceil() flips
     assert abs(n_port - n_jax) <= 1e-4 * n_jax
     assert abs(n_jax - chip_smoke.JAX_N_PAIRS) <= 1e-4 * n_jax
+
+
+# ---------------------------------------------------------------------------
+# The blend's gradient and render's gradients
+# ---------------------------------------------------------------------------
+
+def _tile_cot(img5, gx, gy):
+    """(H, W, 5) image cotangents -> (T, P, 8) per-tile cotangents of the
+    JAX blends' [r g b depth T_final 0 0 0] output, zero past the image."""
+    h, w, _ = img5.shape
+    pad = np.zeros((gy * TILE, gx * TILE, 8), np.float32)
+    pad[:h, :w, :5] = img5
+    return pad.reshape(gy, TILE, gx, TILE, 8).transpose(0, 2, 1, 3, 4).reshape(
+        gx * gy, TILE * TILE, 8)
+
+
+def _backward_case(seed, w, h, n=400):
+    """A scene with opaque Gaussians (pairs at the 0.99 clamp), seeded
+    image cotangents and the port's plain gradient of the blend."""
+    s = make_scene(n=n, seed=seed, w=w, h=h)
+    s["opac"][::7] = 0.999
+    rows, bins = _port_bins(s)
+    gx, gy = -(-w // TILE), -(-h // TILE)
+    cot = np.random.default_rng(seed).standard_normal((h, w, 5)).astype(
+        np.float32)
+    fwd = tblend.blend_tiles_plain(rows, bins.gid, bins.starts, gx, gy, w, h)
+    t = torch.as_tensor
+    got = tblend.blend_backward(rows, bins.gid, bins.starts, gx, gy, w, h,
+                                *fwd, t(cot[..., :3]), t(cot[..., 3]),
+                                t(cot[..., 4]))
+    clamped = sum(int((geo["use"] & (geo["alpha_raw"] >= 0.99)).sum())
+                  for *_, geo in tblend._batches(rows, bins.gid, bins.starts,
+                                                 gx))
+    assert clamped > 0
+    return rows, bins, _tile_cot(cot, gx, gy), got.numpy()
+
+
+def _scatter_rows(gdata, gids, n_rows):
+    """(S, 16, K) per-slot gradients -> (N, 10) rows: the scatter-add of
+    the JAX package's _sc_bwd; slots with gid N land in a dropped row."""
+    acc = np.zeros((n_rows + 1, 10), np.float64)
+    np.add.at(acc, gids.reshape(-1),
+              np.asarray(gdata)[:, :10].transpose(0, 2, 1).reshape(-1, 10))
+    return acc[:n_rows]
+
+
+# Against jax.grad of blend_ref's cumulative-product form, the same formula
+# as the plain version: sums in another order only (measured 3e-6 of a
+# channel's largest entry).
+REF_RTOL = 2e-5
+# The TPU kernels form T as a quotient (pinc / (1 - alpha)) and their
+# prefixes with log-step lane scans; the plain version takes the shifted
+# cumprod and a sequential cumsum. The suffix term (total - prefix) /
+# (1 - alpha) cancels and then multiplies that rounding by up to
+# 1 / (1 - 0.99) = 100 at clamped pairs (measured 1.1e-4).
+PALLAS_RTOL = 1e-3
+
+
+def _compare_row_grads(got, want, rtol):
+    """Per channel of the (N, 10) gradient: max |diff| within rtol of the
+    channel's largest entry."""
+    for c in range(10):
+        scale = np.abs(want[:, c]).max()
+        assert scale > 0, c
+        np.testing.assert_allclose(got[:, c], want[:, c], rtol=0,
+                                   atol=rtol * scale, err_msg=f"channel {c}")
+
+
+@pytest.mark.parametrize("w,h", [(64, 48), (60, 44)])
+def test_plain_backward_matches_ragged_pallas_interpret(w, h):
+    """blend_backward_plain against jax.vjp of blend_chunks (the
+    _bwd_chunk_kernel path) in interpret mode, scatter-added to rows by
+    chunk gid. Tiles span more than 128 pairs (the cross-chunk carry of T
+    and of the four prefixes); opaque Gaussians put pairs at the 0.99 clamp;
+    the 60x44 image leaves pixels of the last tile row and column outside
+    it, which get no cotangent."""
+    from animatablegaussians_tpu.ops.rasterize.blend_pallas import \
+        blend_chunks
+    rows, bins, cot_t, got = _backward_case(7, w, h)
+    gx, gy = -(-w // TILE), -(-h // TILE)
+    counts = (bins.starts[1:] - bins.starts[:-1]).numpy()
+    assert counts.max() > 128
+    data, n, tid, first, gids = _chunk_layout(rows, bins, gx * gy)
+    _, vjp = jax.vjp(lambda d: blend_chunks(d, n, tid, first, tid, gx * gy,
+                                            gx, TILE), data)
+    want = _scatter_rows(vjp(jnp.asarray(cot_t))[0], gids, rows.shape[0])
+    _compare_row_grads(got, want, rtol=PALLAS_RTOL)
+
+
+def test_plain_backward_matches_rect_pallas_and_ref():
+    """blend_backward_plain against jax.vjp of the rect blend_tiles (the
+    _bwd_kernel path, interpret mode) and against jax.grad through
+    blend_ref.blend_tiles_ref, each scatter-added to rows."""
+    from animatablegaussians_tpu.ops.rasterize.blend_pallas import \
+        blend_tiles as pallas_blend_tiles
+    rows, bins, cot_t, got = _backward_case(2, W, H, n=200)
+    counts = (bins.starts[1:] - bins.starts[:-1]).numpy()
+    K = int(-(-counts.max() // 128) * 128)
+    n_rows = rows.shape[0]
+    rows_np = np.concatenate([rows.numpy(), np.zeros((1, 10), np.float32)])
+    idx = np.full((GX * GY, K), n_rows)
+    for t in range(GX * GY):
+        a, b = int(bins.starts[t]), int(bins.starts[t + 1])
+        idx[t, :b - a] = bins.gid[a:b].numpy()
+    tile_data = np.zeros((GX * GY, 16, K), np.float32)
+    tile_data[:, :10] = rows_np[idx].transpose(0, 2, 1)
+    cnt = jnp.asarray(counts.astype(np.int32))
+    ids = jnp.arange(GX * GY, dtype=jnp.int32)
+    for name, fn in (
+            ("pallas", lambda d: pallas_blend_tiles(d, cnt, ids, GX, TILE)),
+            ("ref", lambda d: blend_tiles_ref(d, cnt, GX, TILE))):
+        _, vjp = jax.vjp(fn, jnp.asarray(tile_data))
+        want = _scatter_rows(vjp(jnp.asarray(cot_t))[0], idx, n_rows)
+        _compare_row_grads(got, want, rtol=PALLAS_RTOL if name == "pallas"
+                           else REF_RTOL)
+
+
+@pytest.mark.parametrize("seed,n_pad", [(0, 0), (5, 30)])
+def test_render_gradients_match_jax(seed, n_pad):
+    """api.render's gradients with respect to means, scales, rotations,
+    opacities and colours against jax.vjp of the JAX api.render
+    (backend="ref", caps that drop nothing), for seeded cotangents of the
+    image, depth and mask."""
+    s = make_scene(n=150, seed=seed, n_pad=n_pad)
+    s["opac"][::9] = 0.999
+    bg = np.array([0.1, 0.2, 0.3], np.float32)
+    names = ("means", "scales", "q", "opac", "colors")
+    cfg = RasterizeConfig(backend="ref", k_max=512, max_dup=16)
+
+    def jrender(*args):
+        return japi.render(*args, jnp.asarray(bg), jnp.asarray(s["extr"]),
+                           jnp.asarray(s["intr"]), W, H, config=cfg,
+                           valid_mask=jnp.asarray(s["valid"]))
+
+    inputs = [jnp.asarray(s[k]) for k in names]
+    assert int(jrender(*inputs)["n_overflow"]) == 0
+    outs, vjp = jax.vjp(lambda *a: tuple(
+        jrender(*a)[k] for k in ("render", "depth", "mask")), *inputs)
+    rng = np.random.default_rng(seed)
+    cots = [rng.standard_normal(np.shape(o)).astype(np.float32)
+            for o in outs]
+    want = vjp(tuple(jnp.asarray(c) for c in cots))
+
+    ts = [torch.tensor(s[k], requires_grad=True) for k in names]
+    t = lambda k: torch.as_tensor(s[k])
+    out = tapi.render(*ts, torch.as_tensor(bg), t("extr"), t("intr"), W, H,
+                      valid_mask=t("valid"))
+    loss = sum((out[k] * torch.as_tensor(c)).sum()
+               for k, c in zip(("render", "depth", "mask"), cots))
+    loss.backward()
+    for name, x, w in zip(names, ts, want):
+        w = np.asarray(w)
+        # float32 preprocess and blend in two frameworks, summed in another
+        # order; relative to the input's whole gradient
+        err = np.linalg.norm(x.grad.numpy() - w) / np.linalg.norm(w)
+        assert err < 1e-4, (name, err)
