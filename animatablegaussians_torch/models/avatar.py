@@ -2,17 +2,19 @@
 -> LBS skin -> tile splat, for the novel-pose render path and, with
 ``training=True``, under autograd for the train step.
 
-Port of ``animatablegaussians_tpu/models/avatar.py:38-187,251-373,419-567``
-as an ``nn.Module``. The point set is the JAX package's block-packed
+Port of ``animatablegaussians_tpu/models/avatar.py:38-567`` as an
+``nn.Module``. The point set is the JAX package's block-packed
 masked-texel layout (``texel_block`` consecutive texels per block, with a
 ``valid`` mask for the pad texels), so per-Gaussian tensors compare index
 for index with the JAX package and sort ties agree. Parameters live in the
 module; ``utils/convert.params_from_jax`` carries the JAX parameters
 across. The training-time view-direction jitter takes its (N, 3) normal
 noise from the caller (``draws``), so a test can hand both packages the
-same numbers. Not ported yet: mean hands (``hand_vals``) and pose-map
-regeneration (``get_pose_map``). Random styles are refused: the shipped
-configs turn them off (``configs/avatarrex_zzr/avatar.yaml:78``).
+same numbers. The mean-hand freeze of the ``test.fix_hand`` configs
+(``generate_mean_hands`` once, then ``hand_vals`` on every render) and the
+pose-map regeneration for novel poses (``get_pose_map``) are here too.
+Random styles are refused: the shipped configs turn them off
+(``configs/avatarrex_zzr/avatar.yaml:78``).
 """
 
 from __future__ import annotations
@@ -29,10 +31,15 @@ from animatablegaussians_torch.models.gaussian_model import create_from_pcd
 from animatablegaussians_torch.models.styleunet import DualStyleUNet
 from animatablegaussians_torch.ops import quat as quat_ops
 from animatablegaussians_torch.ops.rasterize import render as splat
+from animatablegaussians_torch.utils.geometry import normalize_vert_bbox
 
 # consecutive texels per block of the packed point set (the JAX package's
 # default ``texel_block``)
 TEXEL_BLOCK = 8
+
+
+def _pose_key(use_pca: bool) -> str:
+    return "smpl_pos_map_pca" if use_pca else "smpl_pos_map"
 
 
 class AvatarNet(nn.Module):
@@ -158,15 +165,18 @@ class AvatarNet(nn.Module):
             off += c2
         return torch.cat(vals, dim=-1).reshape(self.n_points, -1)
 
-    def _scatter_masked_half(self, vals):
-        """(N,) point values -> (H/2, W/2) half-res map, zeros elsewhere."""
+    def _scatter_masked_half(self, vals, channels: int = 0):
+        """(N, [C]) point values -> (H/2, W/2, [C]) half-res map, zeros
+        elsewhere: the even-(row, col) texels of the full-res scatter."""
         hb = self.texel_block // 2
         hh, hw = self.map_h // 2, self.map_w // 2
-        v = vals.reshape(self.n_points)[self.vd_half_src]
-        out = torch.zeros((hh * hw // hb, hb), dtype=vals.dtype,
+        c = max(channels, 1)
+        v = vals.reshape(self.n_points, c)[self.vd_half_src]
+        out = torch.zeros((hh * hw // hb, hb, c), dtype=vals.dtype,
                           device=vals.device)
-        out[self.vd_half_tgt] = v.reshape(-1, hb)
-        return out.reshape(hh, hw)
+        out[self.vd_half_tgt] = v.reshape(-1, hb, c)
+        out = out.reshape(hh, hw, c)
+        return out[..., 0] if channels == 0 else out
 
     def _point_mats(self, jnt_mats):
         """(J, 4, 4) joint affines -> (N, 4, 4) LBS-blended per point."""
@@ -222,36 +232,95 @@ class AvatarNet(nn.Module):
         return out
 
     # -- heads one at a time, for the pretrain step (ref: avatar.py:93-124) --
-    def get_positions(self, pose_map):
+    def get_positions(self, pose_map, plain: bool = False):
         """(S, S, 3) pose map -> (N, 3) canonical positions."""
-        out = self.position_net(self.constant_style(), pose_map[None])
+        out = self.position_net(self.constant_style(), pose_map[None],
+                                plain=plain)
         return 0.05 * self._select_masked_dual([out]) + self.cano_gaussian.xyz
 
-    def get_others(self, pose_map):
+    def get_others(self, pose_map, plain: bool = False):
         """(S, S, 3) pose map -> activated opacity (N, 1), scales (N, 3)
         and unit rotations (N, 4)."""
-        out = self.other_net(self.constant_style(), pose_map[None])
+        out = self.other_net(self.constant_style(), pose_map[None],
+                             plain=plain)
         others = self._select_masked_dual([out])                # (N, 8)
         g = self.cano_gaussian
         return (torch.sigmoid(others[:, 0:1] + g.opacity),
                 torch.exp(others[:, 1:4] + g.scaling),
                 quat_ops.normalize(others[:, 4:8] + g.rotation))
 
+    def get_colors(self, pose_map, plain: bool = False):
+        """(S, S, 3) pose map -> (N, 3) colours of the colour head without
+        view features."""
+        out = self.color_net(self.constant_style(), pose_map[None],
+                             plain=plain)
+        return self._select_masked_dual([out])
+
+    # -- pose-map regeneration for novel poses (ref: avatar.py:149-159) --
+    @torch.no_grad()
+    def get_pose_map(self, items: dict) -> torch.Tensor:
+        """The canonical points skinned by ``cano2live_jnt_mats_woRoot``,
+        scattered to the half-res map: (S, S, 6), front|back stacked
+        channelwise like ``smpl_pos_map``."""
+        pt_mats = self._point_mats(items["cano2live_jnt_mats_woRoot"])
+        live_pts = (torch.einsum("nxy,ny->nx", pt_mats[:, :3, :3],
+                                 self.init_points) + pt_mats[:, :3, 3])
+        live_map = self._scatter_masked_half(live_pts, channels=3)
+        half = live_map.shape[1] // 2
+        return torch.cat([live_map[:, :half], live_map[:, half:]], dim=-1)
+
+    # -- mean-hand freeze (ref: avatar.py:52-82,183-200) ------------------
+    @torch.no_grad()
+    def generate_mean_hands(self, pose_map, plain: bool = False) -> dict:
+        """The heads' canonical Gaussians for one fixed (S, S, 3) pose map,
+        which ``render(hand_vals=...)`` blends in over the hands."""
+        opacity, scales, rotations = self.get_others(pose_map, plain)
+        return dict(positions=self.get_positions(pose_map, plain),
+                    opacity=opacity, scales=scales, rotations=rotations,
+                    colors=self.get_colors(pose_map, plain))
+
+    def hand_weights(self, items) -> torch.Tensor:
+        """(N, 1) weight of the mean hands at each point: sigmoid ramps
+        along x into the two hands' MANO boxes, 0 below
+        ``cano_smpl_center``, the two summed and capped at 1."""
+        cano_xyz = self.init_points
+        wl = torch.sigmoid(2.5 * (normalize_vert_bbox(
+            items["left_cano_mano_v"], attris=cano_xyz, dim=0,
+            per_axis=True)[:, 0:1] + 2.0))
+        wr = torch.sigmoid(-2.5 * (normalize_vert_bbox(
+            items["right_cano_mano_v"], attris=cano_xyz, dim=0,
+            per_axis=True)[:, 0:1] - 2.0))
+        below = (cano_xyz[:, 1] < items["cano_smpl_center"][1])[:, None]
+        wl = torch.where(below, torch.zeros_like(wl), wl)
+        wr = torch.where(below, torch.zeros_like(wr), wr)
+        s = torch.clamp(wl + wr, min=1.0)
+        return wl / s + wr / s
+
+    def blend_mean_hands(self, hand_vals, cano_pts, opacity, scales,
+                         rotations, items):
+        """Blend ``hand_vals`` in over the hands by ``hand_weights``."""
+        w = self.hand_weights(items)
+        return (w * hand_vals["positions"] + (1 - w) * cano_pts,
+                w * hand_vals["opacity"] + (1 - w) * opacity,
+                w * hand_vals["scales"] + (1 - w) * scales,
+                w * hand_vals["rotations"] + (1 - w) * rotations)
+
     # -- render (ref: avatar.py:161-239) ----------------------------------
-    def _head_outputs(self, pose_maps, front_vd, back_vd):
+    def _head_outputs(self, pose_maps, front_vd, back_vd,
+                      plain: bool = False):
         """(B, S, S, 3) pose maps -> three raw (B, S, S, 2C) outputs. With
         the constant style the modulated convs share one weight across the
         batch, so B frames run as one batched conv stack."""
         style = self.constant_style()
-        return (self.position_net(style, pose_maps),
-                self.other_net(style, pose_maps),
+        return (self.position_net(style, pose_maps, plain=plain),
+                self.other_net(style, pose_maps, plain=plain),
                 self.color_net(style, pose_maps, view_feature1=front_vd,
-                               view_feature2=back_vd))
+                               view_feature2=back_vd, plain=plain))
 
     def _finish_render(self, items, pos_out, other_out, color_out, bg,
-                       img_w, img_h, full=True, plain=False):
-        """Masked select -> Gaussian attributes -> LBS -> splat for ONE
-        frame, from raw (1, S, S, 2C) head outputs."""
+                       img_w, img_h, full=True, plain=False, hand_vals=None):
+        """Masked select -> Gaussian attributes [-> mean hands] -> LBS ->
+        splat for ONE frame, from raw (1, S, S, 2C) head outputs."""
         sel = self._select_masked_dual([pos_out, other_out, color_out])
         g = self.cano_gaussian
         cano_pts = 0.05 * sel[:, :3] + g.xyz
@@ -259,6 +328,9 @@ class AvatarNet(nn.Module):
         scales = torch.exp(sel[:, 4:7] + g.scaling)
         rotations = quat_ops.normalize(sel[:, 7:11] + g.rotation)
         colors = sel[:, 11:14]
+        if hand_vals is not None:
+            cano_pts, opacity, scales, rotations = self.blend_mean_hands(
+                hand_vals, cano_pts, opacity, scales, rotations, items)
         gaussian_vals = dict(positions=cano_pts, opacity=opacity,
                              scales=scales, rotations=rotations,
                              colors=colors)
@@ -289,18 +361,22 @@ class AvatarNet(nn.Module):
     def render(self, items: dict, bg_color=(0.0, 0.0, 0.0),
                img_w: Optional[int] = None, img_h: Optional[int] = None,
                training: bool = False, draws: Optional[dict] = None,
-               plain: bool = False) -> dict:
+               plain: bool = False, use_pca: bool = False,
+               hand_vals: Optional[dict] = None) -> dict:
         """One frame. ``items``: tensors on the module's device —
-        smpl_pos_map (S, S, >=3), cano2live_jnt_mats (J, 4, 4), extr, intr.
+        smpl_pos_map (S, S, >=3) (``smpl_pos_map_pca`` with ``use_pca``),
+        cano2live_jnt_mats (J, 4, 4), extr, intr; with ``hand_vals`` (from
+        ``generate_mean_hands``) also left_cano_mano_v, right_cano_mano_v
+        (M, 3) and cano_smpl_center (3,).
 
         By default a novel-pose render without autograd. ``training=True``
         records the graph for the train step and leaves out the outputs it
         does not use; ``draws["viewdir_noise"]`` (N, 3), if given, jitters
-        the view directions. ``plain=True`` splats through the kernels'
-        plain versions."""
+        the view directions. ``plain=True`` runs the CNN's FIRs and the
+        splat through the kernels' plain versions."""
         grad = contextlib.nullcontext() if training else torch.no_grad()
         with grad:
-            pose_map = items["smpl_pos_map"][..., :3]
+            pose_map = items[_pose_key(use_pca)][..., :3]
             front_vd = back_vd = None
             if self.with_viewdirs:
                 noise = (draws or {}).get("viewdir_noise") if training \
@@ -308,19 +384,23 @@ class AvatarNet(nn.Module):
                 front_vd, back_vd = self._encode_viewdirs(
                     self._viewdir_half_map(items, noise)[None])
             pos_out, other_out, color_out = self._head_outputs(
-                pose_map[None], front_vd, back_vd)
+                pose_map[None], front_vd, back_vd, plain)
             return self._finish_render(items, pos_out, other_out, color_out,
                                        self._bg(bg_color), img_w, img_h,
-                                       full=not training, plain=plain)
+                                       full=not training, plain=plain,
+                                       hand_vals=hand_vals)
 
     @torch.no_grad()
     def render_sequence(self, items_seq: dict, bg_color=(0.0, 0.0, 0.0),
                         img_w: Optional[int] = None,
-                        img_h: Optional[int] = None) -> dict:
+                        img_h: Optional[int] = None, use_pca: bool = False,
+                        hand_vals: Optional[dict] = None,
+                        plain: bool = False) -> dict:
         """F stacked frames: the three heads run as ONE batch-F conv stack,
         then a per-frame select/skin/splat loop (binning sizes are per
-        frame). Returns rgb/mask/depth stacked (F, H, W[, 3])."""
-        pose_maps = items_seq["smpl_pos_map"][..., :3]          # (F, S, S, 3)
+        frame). Returns rgb/mask/depth stacked (F, H, W[, 3]). ``plain``
+        as in ``render``."""
+        pose_maps = items_seq[_pose_key(use_pca)][..., :3]      # (F, S, S, 3)
         n_frames = pose_maps.shape[0]
         frames = [{k: v[f] for k, v in items_seq.items()}
                   for f in range(n_frames)]
@@ -329,11 +409,12 @@ class AvatarNet(nn.Module):
             front_vd, back_vd = self._encode_viewdirs(torch.stack(
                 [self._viewdir_half_map(it) for it in frames]))
         pos_out, other_out, color_out = self._head_outputs(
-            pose_maps, front_vd, back_vd)
+            pose_maps, front_vd, back_vd, plain)
         bg = self._bg(bg_color)
         outs = [self._finish_render(it, pos_out[f:f + 1],
                                     other_out[f:f + 1], color_out[f:f + 1],
-                                    bg, img_w, img_h, full=False)
+                                    bg, img_w, img_h, full=False,
+                                    plain=plain, hand_vals=hand_vals)
                 for f, it in enumerate(frames)]
         return {k: torch.stack([o[k] for o in outs])
                 for k in ("rgb_map", "mask_map", "depth_map")}

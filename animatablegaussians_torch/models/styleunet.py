@@ -12,7 +12,9 @@ inside; ``DualStyleUNet.forward`` takes and returns NHWC like the JAX
 The JAX package folds the up-conv + blur and blur + down-conv chains into
 polyphase convolutions (styleunet.py:208-256,294-348); here they are the
 chains themselves (transposed conv then FIR blur; FIR blur then strided
-conv), which agree up to float32 summation order.
+conv), which agree up to float32 summation order. Every FIR of the net goes
+through ``ops/upfirdn2d._upfirdn2d`` and so through the FIR kernel on the
+card; ``forward(..., plain=True)`` sends them to its plain version.
 """
 
 from __future__ import annotations
@@ -81,8 +83,8 @@ class Blur(nn.Module):
         super().__init__()
         self.kernel, self.pad = make_kernel(kernel), pad
 
-    def forward(self, x):
-        return _upfirdn2d(x, self.kernel, pad=self.pad)
+    def forward(self, x, plain=False):
+        return _upfirdn2d(x, self.kernel, pad=self.pad, plain=plain)
 
 
 class FusedLeakyReLU(nn.Module):
@@ -94,9 +96,17 @@ class FusedLeakyReLU(nn.Module):
         return _fused_leaky_relu(x, self.bias)
 
 
-def conv_layer(in_ch, out_ch, k, downsample=False, generator=None):
+class ConvLayer(nn.Sequential):
     """ConvLayer (ref: dual_styleunet.py:329-371): [Blur,] EqualConv2d,
     FusedLeakyReLU — so the keys are ``.0/.1`` or ``.1/.2``."""
+
+    def forward(self, x, plain=False):
+        for m in self:
+            x = m(x, plain) if isinstance(m, Blur) else m(x)
+        return x
+
+
+def conv_layer(in_ch, out_ch, k, downsample=False, generator=None):
     layers = []
     if downsample:
         p = (len(BLUR_KERNEL) - 2) + (k - 1)
@@ -107,7 +117,7 @@ def conv_layer(in_ch, out_ch, k, downsample=False, generator=None):
     layers.append(EqualConv2d(in_ch, out_ch, k, stride, padding, bias=False,
                               generator=generator))
     layers.append(FusedLeakyReLU(out_ch))
-    return nn.Sequential(*layers)
+    return ConvLayer(*layers)
 
 
 class ConvBlock(nn.Module):
@@ -117,8 +127,8 @@ class ConvBlock(nn.Module):
         self.conv2 = conv_layer(in_ch, out_ch, 3, downsample=True,
                                 generator=generator)
 
-    def forward(self, x):
-        return self.conv2(self.conv1(x))
+    def forward(self, x, plain=False):
+        return self.conv2(self.conv1(x), plain)
 
 
 class FromRGB(nn.Module):
@@ -128,8 +138,8 @@ class FromRGB(nn.Module):
         super().__init__()
         self.conv = conv_layer(in_ch, out_ch, 1, generator=generator)
 
-    def forward(self, img, skip):
-        img = _downsample(img, make_kernel(BLUR_KERNEL))
+    def forward(self, img, skip, plain=False):
+        img = _downsample(img, make_kernel(BLUR_KERNEL), plain=plain)
         return img, self.conv(img) + skip
 
 
@@ -154,21 +164,21 @@ class ModulatedConv2d(nn.Module):
             w = w * demod[:, None, None, None]
         return w
 
-    def _conv(self, x, w):
+    def _conv(self, x, w, plain):
         if self.upsample:
             out = F.conv_transpose2d(x, w.transpose(0, 1), stride=2)
             p = (len(BLUR_KERNEL) - 2) - (self.k - 1)
             return _upfirdn2d(out, make_kernel(BLUR_KERNEL) * 4.0,
-                              pad=((p + 1) // 2 + 1, p // 2 + 1))
+                              pad=((p + 1) // 2 + 1, p // 2 + 1), plain=plain)
         return F.conv2d(x, w, padding=self.k // 2)
 
-    def forward(self, x, style):
+    def forward(self, x, style, plain=False):
         s = self.modulation(style)                          # (B, in)
         if s.shape[0] == 1:
             # one style row modulates every sample: one shared weight and
             # one batched conv (the frame-batched inference path)
-            return self._conv(x, self._weight(s[0]))
-        return torch.cat([self._conv(x[i:i + 1], self._weight(s[i]))
+            return self._conv(x, self._weight(s[0]), plain)
+        return torch.cat([self._conv(x[i:i + 1], self._weight(s[i]), plain)
                           for i in range(s.shape[0])])
 
 
@@ -190,8 +200,8 @@ class StyledConv(nn.Module):
         self.noise = NoiseInjection()
         self.activate = FusedLeakyReLU(out_ch)
 
-    def forward(self, x, style, noise):
-        return self.activate(self.noise(self.conv(x, style), noise))
+    def forward(self, x, style, noise, plain=False):
+        return self.activate(self.noise(self.conv(x, style, plain), noise))
 
 
 class ToRGB(nn.Module):
@@ -203,10 +213,10 @@ class ToRGB(nn.Module):
                                     demodulate=False, generator=generator)
         self.bias = nn.Parameter(torch.zeros(1, out_ch, 1, 1))
 
-    def forward(self, x, style, skip=None):
+    def forward(self, x, style, skip=None, plain=False):
         out = self.conv(x, style) + self.bias
         if skip is not None:
-            out = out + _wavelet_upsample(skip, BLUR_KERNEL)
+            out = out + _wavelet_upsample(skip, BLUR_KERNEL, plain=plain)
         return out
 
 
@@ -278,7 +288,7 @@ class DualStyleUNet(nn.Module):
             self.noises.register_buffer(
                 f"noise_{layer_idx}", _randn((1, 1, 2 ** res, 2 ** res), g))
 
-    def _decode(self, convs, rgbs, latent, cond_list, view_feature):
+    def _decode(self, convs, rgbs, latent, cond_list, view_feature, plain):
         noise = [getattr(self.noises, f"noise_{i}")
                  for i in range(self.num_layers)]
         n_comb = len(self.comb_convs)
@@ -290,9 +300,9 @@ class DualStyleUNet(nn.Module):
             elif i < 2 * n_comb:
                 out = torch.cat([out, cond_list[-1 - i // 2]], dim=1)
                 out = self.comb_convs[-1 - i // 2](out)
-            out = convs[i](out, latent, noise[i])
-            out = convs[i + 1](out, latent, noise[i + 1])
-            skip = rgb(out, latent, skip)
+            out = convs[i](out, latent, noise[i], plain)
+            out = convs[i + 1](out, latent, noise[i + 1], plain)
+            skip = rgb(out, latent, skip, plain)
             if view_feature is not None and i == 8:
                 out = out + F.interpolate(
                     view_feature.permute(0, 3, 1, 2), size=out.shape[2:],
@@ -300,20 +310,20 @@ class DualStyleUNet(nn.Module):
         return _inverse_haar_transform(skip)
 
     def forward(self, style, cond_img, view_feature1=None,
-                view_feature2=None):
+                view_feature2=None, plain=False):
         """style (B or 1, style_dim); cond_img (B, inp, inp, inp_ch) NHWC;
         view features NHWC. Returns (B, out, out, 2 * out_ch) NHWC:
-        [front, back]."""
+        [front, back]. ``plain=True`` runs the FIRs' plain version."""
         latent = self.style(style)
         img = cond_img.permute(0, 3, 1, 2)
-        cond_out = self.conv_in(img)
+        cond_out = self.conv_in(img, plain)
         cond_list = [cond_out]
         for frgb, cblock in zip(self.from_rgbs, self.cond_convs):
-            img, cond_out = frgb(img, cond_out)
-            cond_out = cblock(cond_out)
+            img, cond_out = frgb(img, cond_out, plain)
+            cond_out = cblock(cond_out, plain)
             cond_list.append(cond_out)
         image1 = self._decode(self.convs1, self.to_rgbs1, latent, cond_list,
-                              view_feature1)
+                              view_feature1, plain)
         image2 = self._decode(self.convs2, self.to_rgbs2, latent, cond_list,
-                              view_feature2)
+                              view_feature2, plain)
         return torch.cat([image1, image2], dim=1).permute(0, 2, 3, 1)

@@ -7,8 +7,20 @@ core (leading underscore) that the CNN (``models/styleunet.py``) calls
 directly. The JAX package folds several chains into single convolutions
 (polyphase downsample, the composed wavelet-upsample kernel); here they are
 the plain chains they were derived from, which agree up to float32
-summation order. The Pallas FIR kernel stays out, as it is off by default
-in the JAX package.
+summation order.
+
+Every resampling goes through ``_upfirdn2d``. A call that passes the JAX
+package's gates (``upfirdn2d._try_pallas_fir``: up and down at most 2, a
+numpy kernel that is rank-1 separable with at most 4 taps a side) goes
+through ``ops/fir.py::upfirdn2d_fir``: the CUDA kernel ``csrc/fir.cu`` for
+a tensor on the card, its plain version for one on the CPU. The JAX
+package's further gate of at least 32 channels keeps narrow maps out of
+the TPU kernel's VMEM blocks, where they lane-pad; the CUDA kernel runs one
+thread per output element whatever the channel count, so it is not kept
+(on the H100 it is faster than the library's depthwise convolution at the
+CNN's 3- and 8-channel calls too; ``PERF.md``). ``plain=True`` sends the
+gated calls to the plain version on any device (the reference the kernel
+path is held to). The rest is a depthwise ``F.conv2d``.
 """
 
 from __future__ import annotations
@@ -20,6 +32,8 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from animatablegaussians_torch.ops import fir as _fir
 
 
 def make_kernel(k: Sequence[float]) -> np.ndarray:
@@ -40,15 +54,39 @@ def _nhwc(fn, x, *args, **kw):
     return fn(x.permute(0, 3, 1, 2), *args, **kw).permute(0, 2, 3, 1)
 
 
+_FACTOR_CACHE: dict = {}
+
+
+def _fir_factors(kernel, up: int, down: int):
+    """The (kv, kh) tap tuples when this call passes the gates, else None."""
+    if up > 2 or down > 2:
+        return None
+    if not isinstance(kernel, np.ndarray):
+        return None
+    key = (kernel.tobytes(), kernel.shape, kernel.dtype.str)
+    if key not in _FACTOR_CACHE:
+        fac = _fir.separable_factors(kernel)
+        _FACTOR_CACHE[key] = None if fac is None else (
+            tuple(fac[0].tolist()), tuple(fac[1].tolist()))
+    return _FACTOR_CACHE[key]
+
+
 # ---------------------------------------------------------------------------
 # NCHW cores
 # ---------------------------------------------------------------------------
 
 def _upfirdn2d(x: torch.Tensor, kernel, up: int = 1, down: int = 1,
-               pad=(0, 0)) -> torch.Tensor:
+               pad=(0, 0), plain: bool = False) -> torch.Tensor:
     """Zero-stuff by ``up``, pad (negative pads crop), correlate with the
-    flipped kernel (a true convolution), keep every ``down``-th sample."""
+    flipped kernel (a true convolution), keep every ``down``-th sample;
+    through the FIR kernel (its plain version with ``plain=True``) where
+    ``_fir_factors`` lets it."""
     px0, px1, py0, py1 = _norm_pad(pad)
+    fac = _fir_factors(kernel, up, down)
+    if fac is not None:
+        fn = _fir.upfirdn2d_fir_plain if plain else _fir.upfirdn2d_fir
+        return fn(x.contiguous(), fac[0], fac[1], up, down,
+                  (px0, px1, py0, py1))
     n, c, h, w = x.shape
     if up > 1:
         x = x.reshape(n, c, h, 1, w, 1)
@@ -84,16 +122,16 @@ def _fused_leaky_relu(x, bias=None, negative_slope=0.2,
     return torch.where(x >= 0, x, x * negative_slope) * scale
 
 
-def _upsample(x, kernel: np.ndarray, factor: int = 2):
+def _upsample(x, kernel: np.ndarray, factor: int = 2, plain: bool = False):
     p = kernel.shape[0] - factor
     return _upfirdn2d(x, kernel * (factor ** 2), up=factor, down=1,
-                      pad=((p + 1) // 2 + factor - 1, p // 2))
+                      pad=((p + 1) // 2 + factor - 1, p // 2), plain=plain)
 
 
-def _downsample(x, kernel: np.ndarray, factor: int = 2):
+def _downsample(x, kernel: np.ndarray, factor: int = 2, plain: bool = False):
     p = kernel.shape[0] - factor
     return _upfirdn2d(x, kernel, up=1, down=factor,
-                      pad=((p + 1) // 2, p // 2))
+                      pad=((p + 1) // 2, p // 2), plain=plain)
 
 
 def _blur(x, kernel: np.ndarray, pad, upsample_factor: int = 1):
@@ -157,9 +195,10 @@ def _inverse_haar_transform(x):
     return _depth_to_space2(torch.cat(phases, dim=1))
 
 
-def _wavelet_upsample(x, fir: Sequence[float] = (1, 3, 3, 1)):
+def _wavelet_upsample(x, fir: Sequence[float] = (1, 3, 3, 1),
+                      plain: bool = False):
     return _haar_transform(_upsample(_inverse_haar_transform(x),
-                                     make_kernel(fir)))
+                                     make_kernel(fir), plain=plain))
 
 
 def _wavelet_downsample(x, fir: Sequence[float] = (1, 3, 3, 1)):

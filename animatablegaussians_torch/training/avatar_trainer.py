@@ -1,8 +1,8 @@
-"""Avatar training, one example per step: the pretrain step and the
-main-phase train step.
+"""Avatar training: the pretrain step, the main-phase train step on one
+example or on a batch of B, and the multi-step train scans.
 
-Port of ``animatablegaussians_tpu/training/avatar_trainer.py:41-200,380-424``
-(ref: main_avatar.py:37-264):
+Port of ``animatablegaussians_tpu/training/avatar_trainer.py`` (ref:
+main_avatar.py:37-264):
 
   * ``make_optimizer``: Adam with a cosine learning rate and a 5% floor
     over ``iter_num`` steps; ``finetune_color`` freezes the position net;
@@ -10,12 +10,17 @@ Port of ``animatablegaussians_tpu/training/avatar_trainer.py:41-200,380-424``
     static canonical Gaussians with a masked L1;
   * the main step renders under autograd (the splat's backward is the CUDA
     kernel ``csrc/blend_bwd.cu`` on a GPU) and takes L1, mask, SSIM,
-    LPIPS on a crop, and offset losses on a random background.
+    LPIPS on a crop, and offset losses on a random background;
+  * the batched step runs the three heads once on the B pose maps (forward
+    and backward), splats each item, takes LPIPS once on the B stacked
+    crops, and makes one Adam update on the mean over B;
+  * the train scans run n steps in a host loop and stack their terms.
 
 The step's random numbers are injected, never drawn inside: ``draws`` holds
 ``bg`` (3,), ``viewdir_noise`` (N, 3) and ``crop`` (fv, fu) or None, made
 by ``make_draws`` from a ``torch.Generator`` in production and by a test
-from the JAX package's own key splits. The module, the optimizer, its
+from the JAX package's own key splits; the batched step takes one such
+dict per item. The module, the optimizer, its
 schedule and the step count live in a ``TrainState``, which the steps
 update in place.
 """
@@ -129,20 +134,21 @@ def make_pretrain_step(net):
 # Main phase (ref: main_avatar.py:166-264)
 # ---------------------------------------------------------------------------
 
-def compute_losses(net, items: dict, draws: dict, iter_idx: int, *,
-                   loss_weight: dict, lpips=None, random_bg_color: bool = True,
-                   patch_size: int = 512, random_patch_after: int = 300_000,
-                   img_w: Optional[int] = None, img_h: Optional[int] = None,
-                   plain: bool = False):
-    """One example's total loss and its terms, under autograd. ``lpips`` is
-    a ``training.lpips.LPIPS`` module, needed when its weight is > 0."""
-    dev = net.lbs.device
-    bg = (draws["bg"] if random_bg_color
-          else torch.ones(3, dtype=torch.float32, device=dev))
-    out = net.render(items, bg_color=bg, img_w=img_w, img_h=img_h,
-                     training=True, draws=draws, plain=plain)
-    image = out["rgb_map"]                                    # (H, W, 3)
+def _loss_weights(loss_weight: dict, lpips) -> dict:
+    w = {k: float(loss_weight.get(k, 0.0))
+         for k in ("l1", "mask", "ssim", "lpips", "offset")}
+    if w["lpips"] > 0 and lpips is None:
+        # never skip silently: without the perceptual term the model
+        # trains differently (ref: main_avatar.py:229-236)
+        raise RuntimeError("loss_weight.lpips > 0 but no LPIPS module")
+    return w
 
+
+def _item_terms(out: dict, items: dict, bg, draws: dict, iter_idx: int,
+                w: dict, patch_size: int, random_patch_after: int):
+    """One rendered example's pixel and offset loss terms, and its
+    (image, target) LPIPS crop (None when LPIPS is off)."""
+    image = out["rgb_map"]                                    # (H, W, 3)
     mask = items["mask_img"].to(torch.float32)               # (H, W)
     # the boundary band is left out of every pixel loss
     # (ref: main_avatar.py:185-189)
@@ -151,46 +157,60 @@ def compute_losses(net, items: dict, draws: dict, iter_idx: int, *,
                      bg[None, None, :])
     image = image * bnd[..., None] + (1.0 - bnd[..., None]) * bg
     gt = gt * bnd[..., None] + (1.0 - bnd[..., None]) * bg
-
-    total = 0.0
     terms = {}
-    w_l1 = float(loss_weight.get("l1", 0.0))
-    if w_l1 > 0:
-        l1 = torch.abs(image - gt).mean()
-        total = total + w_l1 * l1
-        terms["l1_loss"] = l1
-    w_mask = float(loss_weight.get("mask", 0.0))
-    if w_mask > 0:
-        ml = torch.abs(out["mask_map"] * bnd - mask * bnd).mean()
-        total = total + w_mask * ml
-        terms["mask_loss"] = ml
-    w_ssim = float(loss_weight.get("ssim", 0.0))
-    if w_ssim > 0:
-        sl = L.ssim_loss(image, gt)
-        total = total + w_ssim * sl
-        terms["ssim_loss"] = sl
-    w_lp = float(loss_weight.get("lpips", 0.0))
-    if w_lp > 0:
-        if lpips is None:
-            # never skip silently: without the perceptual term the model
-            # trains differently (ref: main_avatar.py:229-236)
-            raise RuntimeError("loss_weight.lpips > 0 but no LPIPS module")
-        crop = None
-        if iter_idx >= random_patch_after:
-            crop = draws["crop"]
-            if crop is None:
-                raise ValueError("the random LPIPS crop needs draws['crop']")
-        img_c, gt_c = L.crop_to_mask([image, gt], mask, patch_size,
-                                     crop=crop)
-        lp = lpips(img_c[None], gt_c[None], normalize=True).mean()
-        total = total + w_lp * lp
-        terms["lpips_loss"] = lp
+    if w["l1"] > 0:
+        terms["l1_loss"] = torch.abs(image - gt).mean()
+    if w["mask"] > 0:
+        terms["mask_loss"] = torch.abs(out["mask_map"] * bnd
+                                       - mask * bnd).mean()
+    if w["ssim"] > 0:
+        terms["ssim_loss"] = L.ssim_loss(image, gt)
     # the offset penalty is always on (ref: main_avatar.py:238-241)
-    ol = L.offset_loss(out["offset"])
-    total = total + float(loss_weight.get("offset", 0.0)) * ol
-    terms["offset_loss"] = ol
+    terms["offset_loss"] = L.offset_loss(out["offset"])
+    crop = None
+    if w["lpips"] > 0:
+        window = None
+        if iter_idx >= random_patch_after:
+            window = draws["crop"]
+            if window is None:
+                raise ValueError("the random LPIPS crop needs draws['crop']")
+        crop = L.crop_to_mask([image, gt], mask, patch_size, crop=window)
+    return terms, crop
+
+
+def _total(terms: dict, crops: list, w: dict, lpips):
+    """The weighted total of the terms and of LPIPS, once on the stacked
+    crops (contiguous, so one example and a batch of one run the same
+    convolutions); adds lpips_loss and total_loss to ``terms``."""
+    total = 0.0
+    for key in ("l1", "mask", "ssim"):
+        if w[key] > 0:
+            total = total + w[key] * terms[f"{key}_loss"]
+    if w["lpips"] > 0:
+        lp = lpips(torch.stack([c[0] for c in crops]),
+                   torch.stack([c[1] for c in crops]), normalize=True).mean()
+        total = total + w["lpips"] * lp
+        terms["lpips_loss"] = lp
+    total = total + w["offset"] * terms["offset_loss"]
     terms["total_loss"] = total
     return total, terms
+
+
+def compute_losses(net, items: dict, draws: dict, iter_idx: int, *,
+                   loss_weight: dict, lpips=None, random_bg_color: bool = True,
+                   patch_size: int = 512, random_patch_after: int = 300_000,
+                   img_w: Optional[int] = None, img_h: Optional[int] = None,
+                   plain: bool = False):
+    """One example's total loss and its terms, under autograd. ``lpips`` is
+    a ``training.lpips.LPIPS`` module, needed when its weight is > 0."""
+    w = _loss_weights(loss_weight, lpips)
+    bg = (draws["bg"] if random_bg_color
+          else torch.ones(3, dtype=torch.float32, device=net.lbs.device))
+    out = net.render(items, bg_color=bg, img_w=img_w, img_h=img_h,
+                     training=True, draws=draws, plain=plain)
+    terms, crop = _item_terms(out, items, bg, draws, iter_idx, w, patch_size,
+                              random_patch_after)
+    return _total(terms, [crop], w, lpips)
 
 
 def make_train_step(net, *, loss_weight: dict, lpips=None,
@@ -201,8 +221,8 @@ def make_train_step(net, *, loss_weight: dict, lpips=None,
     """``step(state, items, draws) -> (state, terms)``: one Adam update on
     one example. ``step.loss_and_grads(state, items, draws) -> terms``
     leaves the gradients in the parameters' ``.grad`` without updating.
-    ``plain=True`` runs the splat's plain versions (the reference the
-    kernels are checked against on the GPU).
+    ``plain=True`` runs the kernels' plain versions, the CNN's FIRs and the
+    splat (the reference the kernels are checked against on the GPU).
 
     The JAX step discards an update whose static binning caps dropped
     pairs (avatar_trainer.py:409-419); here binning is sized per frame from
@@ -226,3 +246,109 @@ def make_train_step(net, *, loss_weight: dict, lpips=None,
 
     step.loss_and_grads = loss_and_grads
     return step
+
+
+def compute_losses_batched(net, batch: dict, draws: list, iter_idx: int, *,
+                           loss_weight: dict, lpips=None,
+                           random_bg_color: bool = True,
+                           patch_size: int = 512,
+                           random_patch_after: int = 300_000,
+                           img_w: Optional[int] = None,
+                           img_h: Optional[int] = None, plain: bool = False):
+    """The mean loss over a batch of B examples and its mean terms, under
+    autograd: every ``batch`` leaf has a leading (B,) axis, and item b uses
+    ``draws[b]`` as ``compute_losses`` uses its draws, so B = 1 is
+    ``compute_losses`` exactly. The constant style shares the modulated
+    weights across items, so the three heads run as one batch-B conv stack;
+    the select / skin / splat tail runs per item (binning sizes are per
+    frame)."""
+    w = _loss_weights(loss_weight, lpips)
+    dev = net.lbs.device
+    n_items = len(draws)
+    bgs = [d["bg"] if random_bg_color
+           else torch.ones(3, dtype=torch.float32, device=dev) for d in draws]
+    frames = [{k: v[b] for k, v in batch.items()} for b in range(n_items)]
+    front_vd = back_vd = None
+    if net.with_viewdirs:
+        front_vd, back_vd = net._encode_viewdirs(torch.stack(
+            [net._viewdir_half_map(it, d.get("viewdir_noise"))
+             for it, d in zip(frames, draws)]))
+    pos_out, other_out, color_out = net._head_outputs(
+        batch["smpl_pos_map"][..., :3], front_vd, back_vd, plain)
+    per_item, crops = [], []
+    for b, (items, d, bg) in enumerate(zip(frames, draws, bgs)):
+        out = net._finish_render(items, pos_out[b:b + 1],
+                                 other_out[b:b + 1], color_out[b:b + 1], bg,
+                                 img_w, img_h, full=False, plain=plain)
+        terms, crop = _item_terms(out, items, bg, d, iter_idx, w,
+                                  patch_size, random_patch_after)
+        per_item.append(terms)
+        crops.append(crop)
+    terms = {k: torch.stack([t[k] for t in per_item]).mean()
+             for k in per_item[0]}
+    return _total(terms, crops, w, lpips)
+
+
+def make_train_step_batched(net, *, loss_weight: dict, lpips=None,
+                            random_bg_color: bool = True,
+                            patch_size: int = 512,
+                            random_patch_after: int = 300_000,
+                            img_w: Optional[int] = None,
+                            img_h: Optional[int] = None, plain: bool = False):
+    """``step(state, batch, draws) -> (state, terms)``: one Adam update on
+    the mean gradient over a batch of B examples (``draws`` one dict per
+    item), the semantics of B data-parallel devices.
+    ``step.loss_and_grads`` leaves the gradients in ``.grad`` without
+    updating. As ``make_train_step``, nothing is dropped by binning, so
+    there is no overflow to discard an update for."""
+
+    def loss_and_grads(state: TrainState, batch: dict, draws: list) -> dict:
+        net.zero_grad(set_to_none=True)
+        total, terms = compute_losses_batched(
+            net, batch, draws, state.iter_idx, loss_weight=loss_weight,
+            lpips=lpips, random_bg_color=random_bg_color,
+            patch_size=patch_size, random_patch_after=random_patch_after,
+            img_w=img_w, img_h=img_h, plain=plain)
+        total.backward()
+        return {k: v.detach() for k, v in terms.items()}
+
+    def step(state: TrainState, batch: dict, draws: list):
+        terms = loss_and_grads(state, batch, draws)
+        _apply(state)
+        return state, terms
+
+    step.loss_and_grads = loss_and_grads
+    return step
+
+
+def _stack_terms(terms_seq: list) -> dict:
+    return {k: torch.stack([t[k] for t in terms_seq]) for k in terms_seq[0]}
+
+
+def make_train_scan(step_fn):
+    """``multi(state, items, draws_seq) -> (state, terms)``: the steps of
+    ``step_fn`` (a ``make_train_step`` or ``make_train_step_batched``
+    step) on the same example for each entry of ``draws_seq``, terms
+    stacked along a leading (n,) axis. On the GPU this is the host loop
+    that ``jax.lax.scan`` compiles into one program on the TPU."""
+    def multi(state: TrainState, items: dict, draws_seq: list):
+        out = []
+        for draws in draws_seq:
+            state, terms = step_fn(state, items, draws)
+            out.append(terms)
+        return state, _stack_terms(out)
+    return multi
+
+
+def make_train_scan_batched(step_fn):
+    """``make_train_scan`` where step i trains on its own example: every
+    leaf of ``batch`` has a leading (n,) axis, and step i takes slice i
+    with ``draws_seq[i]`` (the multi-step training path)."""
+    def multi(state: TrainState, batch: dict, draws_seq: list):
+        out = []
+        for i, draws in enumerate(draws_seq):
+            state, terms = step_fn(state, {k: v[i] for k, v in
+                                           batch.items()}, draws)
+            out.append(terms)
+        return state, _stack_terms(out)
+    return multi

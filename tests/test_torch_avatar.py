@@ -1,8 +1,8 @@
 """The port's novel-pose render slice end to end against the JAX package on
 the CPU: AvatarNet.render and render_sequence with the JAX weights carried
-across by params_from_jax, the pieces of the slice one by one, the
-import_avatar_params round trip, and a subprocess check that the port
-renders without importing jax."""
+across by params_from_jax, the pieces of the slice one by one, the mean-hand
+render and the pose-map regeneration, the import_avatar_params round trip,
+and a subprocess check that the port renders without importing jax."""
 
 import dataclasses
 import os
@@ -21,6 +21,7 @@ from animatablegaussians_tpu.ops.rasterize import RasterizeConfig
 from animatablegaussians_tpu.training.checkpoint import import_avatar_params
 from animatablegaussians_tpu.utils import synthetic as jsyn
 from animatablegaussians_torch.models.avatar import AvatarNet as TAvatarNet
+from animatablegaussians_torch.tools.render_fixture import hand_items
 from animatablegaussians_torch.utils.convert import params_from_jax
 
 torch.backends.cudnn.allow_tf32 = False
@@ -149,6 +150,91 @@ def test_transform_and_select_match_jax(pair):
     np.testing.assert_array_equal(
         tnet._select_masked_dual([torch.as_tensor(o) for o in outs]).numpy(),
         np.asarray(jnet._select_masked_dual([jnp.asarray(o) for o in outs])))
+
+
+@pytest.fixture(scope="module")
+def hands(pair):
+    """The pair's items plus the mean-hand items (render_fixture's MANO
+    stand-ins, 100 points a hand at this size) and a second pose's
+    woRoot joint mats, and the mean hands both packages generate from the
+    pose map that JAX regenerates for that pose."""
+    jnet, params, tnet, items = pair
+    pos, _, _ = jsyn.make_cano_map(map_h=MAP_H)
+    items = dict(items, **hand_items(pos, n_verts=100))
+    items["cano2live_jnt_mats_woRoot"] = jsyn.make_items(
+        img_w=IMG, img_h=IMG, seed=1)["cano2live_jnt_mats_woRoot"]
+    pose_map = np.array(jnet.get_pose_map(_j(items)))
+    want = jnet.generate_mean_hands(params, jnp.asarray(pose_map[..., :3]))
+    got = tnet.generate_mean_hands(torch.as_tensor(pose_map[..., :3]))
+    return items, pose_map, want, got
+
+
+def test_get_pose_map_matches_jax(pair, hands):
+    """The canonical points skinned by the woRoot joints and scattered to
+    the half-res (S, S, 6) map."""
+    _, _, tnet, _ = pair
+    items, want, _, _ = hands
+    got = tnet.get_pose_map(_t(items))
+    assert got.shape == (MAP_H // 2, MAP_H // 2, 6) == want.shape
+    # one (N, J) x (J, 16) product and a 3x3 transform, float32
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-6)
+    assert np.abs(want).max() > 0.1
+
+
+def test_generate_mean_hands_matches_jax(pair, hands):
+    jnet, _, tnet, _ = pair
+    _, _, want, got = hands
+    assert got.keys() == want.keys()
+    for k in got:
+        # three float32 heads (the JAX side's resampling folded), then the
+        # activations: as test_render_matches_jax's head outputs
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                   atol=1e-5, err_msg=k)
+
+
+def test_render_with_mean_hands_matches_jax(pair, hands):
+    """render(hand_vals=...) against the JAX render: the blend moves the
+    points near the two hand boxes, and the image with it differs from the
+    one without."""
+    jnet, params, tnet, _ = pair
+    items, _, jhands, thands = hands
+    bg = (0.3, 0.6, 0.9)
+    want = jax.jit(lambda p, it, hv: jnet.render(
+        p, it, bg_color=bg, img_w=IMG, img_h=IMG, hand_vals=hv))(
+            params, _j(items), jhands)
+    got = tnet.render(_t(items), bg_color=bg, img_w=IMG, img_h=IMG,
+                      hand_vals=thands)
+    plain = tnet.render(_t(items), bg_color=bg, img_w=IMG, img_h=IMG)
+    for k in ("rgb_map", "mask_map", "depth_map"):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                   atol=ATOL, err_msg=k)
+    for k in ("positions", "opacity", "scales", "rotations"):
+        np.testing.assert_allclose(got["posed_gaussians"][k].numpy(),
+                                   np.asarray(want["posed_gaussians"][k]),
+                                   atol=1e-5, err_msg=k)
+    moved = (got["posed_gaussians"]["positions"]
+             - plain["posed_gaussians"]["positions"]).abs().amax(1) > 1e-6
+    assert 0 < int(moved.sum()) < tnet.n_points
+    assert float((got["rgb_map"] - plain["rgb_map"]).abs().max()) > 1e-3
+
+
+def test_render_sequence_with_mean_hands_and_pca_matches_jax(pair, hands):
+    """render_sequence with hand_vals, reading the pose maps under the
+    use_pca key."""
+    jnet, params, tnet, _ = pair
+    items, _, jhands, thands = hands
+    seq = {k: np.broadcast_to(v, (2,) + np.shape(v)).copy()
+           for k, v in items.items()}
+    seq["smpl_pos_map_pca"] = seq.pop("smpl_pos_map")
+    seq["extr"][1, :3, 3] += np.float32([0.02, -0.01, 0.03])
+    want = jax.jit(lambda p, it, hv: jnet.render_sequence(
+        p, it, img_w=IMG, img_h=IMG, use_pca=True, hand_vals=hv))(
+            params, _j(seq), jhands)
+    got = tnet.render_sequence(_t(seq), img_w=IMG, img_h=IMG, use_pca=True,
+                               hand_vals=thands)
+    for k in ("rgb_map", "mask_map", "depth_map"):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                   atol=ATOL, err_msg=k)
 
 
 def test_state_dict_round_trips_through_import_avatar_params(pair):
