@@ -30,28 +30,54 @@
 // pixel's cutoff) and the reduction of ten per-pair sums over the tile's
 // pixels; device-memory traffic is small (40-byte rows read once per tile,
 // five image planes of totals and five of cotangents read once, 40 bytes
-// written per Gaussian by atomics).
+// written per Gaussian by atomics). With the design below the walk itself
+// is most of the time, the reduction the smaller part.
 //
-// What the design does about it: the forward kernel's layout. One CTA of
-// 256 threads per tile, one thread per pixel, walking the tile's range in
-// batches of 256 pairs staged in shared memory (row and gid), stopping when
-// every pixel is past its cutoff (__syncthreads_count) and, inside a batch,
-// when every pixel of a warp is (__all_sync). The TPU kernels emitted a
-// (16, K) gradient block per tile that XLA then scatter-added to rows; here
-// each warp reduces its 32 pixels' ten terms with shuffles and adds them to
-// grad_rows[gid] with one atomicAdd per channel, so the scatter needs no
-// second pass and no per-slot buffer. A warp with no contributing pixel for
-// a pair skips the reduction. The order of the atomic sums varies from run
-// to run, so results vary by float32 rounding. Kept simple on purpose: a
-// CTA-wide reduction before the atomics, and a persistent schedule, are
-// later work.
+// What the design does about it: the forward kernel's layout, with the
+// reduction over pixels done inside the CTA. One CTA of 256 threads per
+// tile, one thread per pixel, walking the tile's range in batches of 128
+// pairs staged in shared memory (row and gid), stopping when every pixel is
+// past its cutoff (__syncthreads_count) and, inside a batch, when every
+// pixel of a warp is (__all_sync). The TPU kernels emitted a (16, K)
+// gradient block per tile that XLA then scatter-added to rows; here the
+// scatter is folded into the kernel in two steps:
+// - per pair, a warp with a contributing pixel reduce-scatters its lanes'
+//   ten terms (padded to 16) with a butterfly of xor shuffles: 8 + 4 + 2 +
+//   1 exchanges leave lanes 2c and 2c + 1 with the sum of channel c over
+//   the warp's pixels, and one more adds them, 16 shuffles in all where
+//   ten full shuffle chains took 50; the sums go to the warp's slots of a
+//   shared (warp, pair, channel) buffer, zeroed at the batch's start, so a
+//   warp with nothing to add writes nothing;
+// - after the batch, each (pair, channel) of it sums its 8 warps' slots in
+//   warp order and adds a non-zero sum to grad_rows[gid] with one
+//   atomicAdd: 8x fewer atomics than one per warp, and none from the
+//   warps that did not contribute.
+// The order of the atomic sums across tiles still varies from run to run,
+// so results vary by float32 rounding. The buffer (40 KB) and the staged
+// rows fit the 48 KB of static shared memory, so four CTAs share an SM.
 
 #include <cuda_runtime.h>
 
 #define TILE 16
 #define BLOCK (TILE * TILE)
-#define ROW 10  // packed row: x y ca cb cc op r g b depth
+#define WARPS (BLOCK / 32)
+#define BATCH 128  // pairs staged per batch
+#define ROW 10     // packed row: x y ca cb cc op r g b depth
 #define FULL_MASK 0xffffffffu
+
+// One step of the butterfly: lanes with bit O set keep the upper N/2 of
+// their N partial sums, the others the lower half, each adding its xor
+// partner's copy of the half it keeps.
+template <int N, int O>
+__device__ __forceinline__ void scatter_step(float (&a)[16], int lane) {
+  const bool upper = lane & O;
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    const float send = upper ? a[i] : a[i + N / 2];
+    const float keep = upper ? a[i + N / 2] : a[i];
+    a[i] = keep + __shfl_xor_sync(FULL_MASK, send, O);
+  }
+}
 
 __global__ void __launch_bounds__(BLOCK)
 blend_backward_kernel(const float* __restrict__ rows,
@@ -64,11 +90,14 @@ blend_backward_kernel(const float* __restrict__ rows,
                       const float* __restrict__ g_depth,
                       const float* __restrict__ g_tfinal,
                       float* __restrict__ grad_rows) {
-  __shared__ float sh[ROW][BLOCK];
-  __shared__ int sh_gid[BLOCK];
+  __shared__ float sh[ROW][BATCH];
+  __shared__ int sh_gid[BATCH];
+  // per (warp, pair, channel) sums of the batch, zero where a warp added
+  // nothing
+  __shared__ __align__(16) float red[WARPS][BATCH * ROW];
   const int t = blockIdx.x;
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
+  const int lane = tid & 31, warp = tid >> 5;
   const int px = (t % grid_x) * TILE + tid % TILE;
   const int py = (t / grid_x) * TILE + tid / TILE;
   const bool inside = px < img_w && py < img_h;
@@ -97,24 +126,28 @@ blend_backward_kernel(const float* __restrict__ rows,
   float T = 1.0f;
   float prefix[4] = {0.0f, 0.0f, 0.0f, 0.0f};
   bool done = !inside;
-  for (long long base = start; base < end; base += BLOCK) {
-    // also the barrier that keeps the previous batch alive until read
+  for (long long base = start; base < end; base += BATCH) {
+    // also the barrier that keeps the previous batch's rows and sums alive
+    // until its reduction has read them
     if (__syncthreads_count(done) == BLOCK) break;
     const long long k = base + tid;
-    if (k < end) {
+    if (tid < BATCH && k < end) {
       const int gi = gids[k];
       sh_gid[tid] = gi;
       const float* r = rows + (long long)gi * ROW;
 #pragma unroll
       for (int c = 0; c < ROW; ++c) sh[c][tid] = r[c];
     }
+    float4* red4 = reinterpret_cast<float4*>(&red[0][0]);
+    for (int i = tid; i < WARPS * BATCH * ROW / 4; i += BLOCK)
+      red4[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     __syncthreads();
-    const int n = (int)min((long long)BLOCK, end - base);
+    const int n = (int)min((long long)BATCH, end - base);
     for (int j = 0; j < n; ++j) {
       if (__all_sync(FULL_MASK, done)) break;  // warp-uniform
-      float v[ROW];
+      float v[16];
 #pragma unroll
-      for (int c = 0; c < ROW; ++c) v[c] = 0.0f;
+      for (int c = 0; c < 16; ++c) v[c] = 0.0f;
       bool contrib = false;
       if (!done) {
         const float dx = sh[0][j] - pxf;
@@ -161,16 +194,23 @@ blend_backward_kernel(const float* __restrict__ rows,
         }
       }
       if (__any_sync(FULL_MASK, contrib)) {
-        float* dst = grad_rows + (long long)sh_gid[j] * ROW;
-#pragma unroll
-        for (int c = 0; c < ROW; ++c) {
-          float s = v[c];
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1)
-            s += __shfl_down_sync(FULL_MASK, s, off);
-          if (lane == 0) atomicAdd(dst + c, s);
-        }
+        scatter_step<16, 16>(v, lane);
+        scatter_step<8, 8>(v, lane);
+        scatter_step<4, 4>(v, lane);
+        scatter_step<2, 2>(v, lane);
+        v[0] += __shfl_xor_sync(FULL_MASK, v[0], 1);
+        const int ch = lane >> 1;  // the channel lanes 2ch, 2ch + 1 hold
+        if ((lane & 1) == 0 && ch < ROW) red[warp][j * ROW + ch] = v[0];
       }
+    }
+    __syncthreads();
+    // one atomic per (pair, channel) of the batch, its warps summed in order
+    for (int i = tid; i < n * ROW; i += BLOCK) {
+      float s = red[0][i];
+#pragma unroll
+      for (int w = 1; w < WARPS; ++w) s += red[w][i];
+      if (s != 0.0f)
+        atomicAdd(grad_rows + (long long)sh_gid[i / ROW] * ROW + i % ROW, s);
     }
   }
 }

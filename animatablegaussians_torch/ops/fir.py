@@ -6,7 +6,7 @@ launched by ``_pallas_core``, and the ``upfirdn2d_pallas`` custom VJP). The
 CUDA kernel is ``csrc/fir.cu``; ``upfirdn2d_fir_plain`` is its plain PyTorch
 version, the same arithmetic step by step: vertical taps first, then
 horizontal, float32, taps reversed (a true convolution). The layout is the
-port's NCHW, with N in the kernel's grid.
+port's NCHW; the kernel walks the N x C image planes.
 
 ``upfirdn2d_fir`` is differentiable (``_FIR``, a ``torch.autograd.Function``):
 its backward is the same operator on the cotangent with the taps reversed,
@@ -18,12 +18,17 @@ device; it never falls back from one to the other.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
+
+from animatablegaussians_torch.utils import cuda_build
 
 MAX_TAPS = 4   # the TPU kernel's HALO: taps per axis the kernel takes
 
@@ -120,17 +125,23 @@ def _check(x: torch.Tensor, kv, kh, up: int, down: int, pad) -> None:
                          f"{len(kh)}, {up}, {down}, {pad}")
 
 
-def _launch(x: torch.Tensor, kv, kh, up: int, down: int,
-            pad) -> torch.Tensor:
-    """One resampling without autograd: ``upfirdn2d_fir_plain`` on the
-    CPU, ``csrc/fir.cu`` on a GPU."""
-    _check(x, kv, kh, up, down, pad)
-    if x.device.type == "cpu":
-        return upfirdn2d_fir_plain(x, kv, kh, up, down, pad)
-    if x.device.type != "cuda":
-        raise ValueError(f"upfirdn2d_fir: unsupported device {x.device}")
-    from animatablegaussians_torch.utils import cuda_build
+class _Params(ctypes.Structure):
+    """``csrc/fir.cu``'s ``FirParams``: the call's shape, pads and taps."""
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "n", "c", "h", "w", "oh", "ow", "up", "down", "px0", "py0", "nv",
+        "nh")] + [("v", ctypes.c_float * MAX_TAPS),
+                  ("hz", ctypes.c_float * MAX_TAPS)]
 
+
+# (input shape, kv, kh, up, down, pad) -> (output shape, _Params, its
+# address; the entry keeps the struct alive): the CNN makes a few dozen
+# distinct calls, each checked and packed once
+_PLANS: dict = {}
+_kernel = None  # the C entry, resolved at the first launch
+
+
+def _plan(x: torch.Tensor, kv, kh, up: int, down: int, pad):
+    _check(x, kv, kh, up, down, pad)
     px0, px1, py0, py1 = (int(p) for p in pad)
     n, c, h, w = x.shape
     oh = out_len(h, len(kv), up, down, py0, py1)
@@ -140,35 +151,72 @@ def _launch(x: torch.Tensor, kv, kh, up: int, down: int,
     if max(x.numel(), n * c * oh * ow) >= 2 ** 31:
         raise ValueError("upfirdn2d_fir: the kernel indexes with 32-bit "
                          f"ints; {tuple(x.shape)} -> {oh}x{ow} is too large")
-    out = torch.empty((n, c, oh, ow), dtype=torch.float32, device=x.device)
-    tv = [float(t) for t in kv] + [0.0] * (MAX_TAPS - len(kv))
-    th = [float(t) for t in kh] + [0.0] * (MAX_TAPS - len(kh))
-    lib = cuda_build.load()
-    with torch.cuda.device(x.device):
-        err = lib.ag_upfirdn2d_fir(
-            x.data_ptr(), out.data_ptr(), n, c, h, w, oh, ow, up, down, px0,
-            py0, len(kv), len(kh), *tv, *th, cuda_build.stream_of(x))
-    cuda_build.check(err, "upfirdn2d_fir")
+    prm = _Params(n, c, h, w, oh, ow, up, down, px0, py0, len(kv), len(kh))
+    prm.v[:len(kv)] = [float(t) for t in kv]
+    prm.hz[:len(kh)] = [float(t) for t in kh]
+    plan = ((n, c, oh, ow), prm, ctypes.addressof(prm))
+    _PLANS[(x.shape, kv, kh, up, down, pad)] = plan
+    return plan
+
+
+def _launch(x: torch.Tensor, kv, kh, up: int, down: int,
+            pad) -> torch.Tensor:
+    """One resampling without autograd: ``upfirdn2d_fir_plain`` on the
+    CPU, ``csrc/fir.cu`` on a GPU. The GPU route is short because it runs
+    ~180 times a train step, mostly on maps the card finishes in
+    microseconds: the call's checks and packed arguments are looked up by
+    its shape, the C entry is resolved once, the stream's raw handle is
+    read without a ``Stream`` object, and the device is switched only when
+    ``x`` is not on the current one."""
+    global _kernel
+    if not x.is_cuda:
+        if x.device.type != "cpu":
+            raise ValueError(f"upfirdn2d_fir: unsupported device {x.device}")
+        _check(x, kv, kh, up, down, pad)
+        return upfirdn2d_fir_plain(x, kv, kh, up, down, pad)
+    if x.dtype != torch.float32 or not x.is_contiguous():
+        _check(x, kv, kh, up, down, pad)            # raises
+    plan = _PLANS.get((x.shape, kv, kh, up, down, pad))
+    if plan is None:
+        plan = _plan(x, kv, kh, up, down, pad)
+    dev = x.get_device()
+    if dev != torch._C._cuda_getDevice():
+        with torch.cuda.device(dev):
+            return _launch(x, kv, kh, up, down, pad)
+    if _kernel is None:
+        _kernel = cuda_build.load().ag_upfirdn2d_fir
+    out = x.new_empty(plan[0])
+    err = _kernel(x.data_ptr(), out.data_ptr(), plan[2],
+                  torch._C._cuda_getCurrentRawStream(dev))
+    if err:
+        cuda_build.check(err, "upfirdn2d_fir")
     upfirdn2d_fir.launches += 1
     return out
 
 
+@functools.lru_cache(maxsize=256)
+def _grad_args(hw, kv, kh, up: int, down: int, pad):
+    """``_launch``'s arguments for the gradient of a call on an (H, W)
+    input: taps reversed, up and down swapped, ``grad_pads``."""
+    return (tuple(reversed(kv)), tuple(reversed(kh)), down, up,
+            grad_pads(hw, len(kv), len(kh), up, down, pad))
+
+
 class _FIR(torch.autograd.Function):
     """``_launch`` with the transposed operator as its gradient
-    (``fir_pallas._bwd``); only ``x`` gets a gradient."""
+    (``fir_pallas._bwd``), launched directly; only ``x`` gets a
+    gradient, and only a first one."""
 
     @staticmethod
     def forward(ctx, x, kv, kh, up, down, pad):
-        ctx.args = (x.shape[2:], kv, kh, up, down, pad)
+        ctx.args = (tuple(x.shape[2:]), kv, kh, up, down, pad)
         return _launch(x, kv, kh, up, down, pad)
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, g):
-        hw, kv, kh, up, down, pad = ctx.args
-        gpad = grad_pads(tuple(hw), len(kv), len(kh), up, down, pad)
-        grad = upfirdn2d_fir(g.contiguous(), tuple(reversed(kv)),
-                             tuple(reversed(kh)), down, up, gpad)
-        return (grad,) + (None,) * 5
+        return (_launch(g.contiguous(), *_grad_args(*ctx.args)),) \
+            + (None,) * 5
 
 
 def upfirdn2d_fir(x: torch.Tensor, kv: Sequence[float], kh: Sequence[float],
@@ -177,9 +225,14 @@ def upfirdn2d_fir(x: torch.Tensor, kv: Sequence[float], kh: Sequence[float],
     """Differentiable separable upfirdn2d of x (N, C, H, W) float32 with
     tap sequences ``kv`` (vertical) and ``kh`` (horizontal) and pad (px0,
     px1, py0, py1): the plain version on the CPU, the kernel on a GPU,
-    forward and backward."""
-    return _FIR.apply(x, tuple(kv), tuple(kh), int(up), int(down),
-                      tuple(int(p) for p in pad))
+    forward and backward. A call that needs no gradient skips the
+    ``autograd.Function``, whose own host cost is about that of the rest
+    of the launch."""
+    args = (tuple(kv), tuple(kh), int(up), int(down),
+            tuple(int(p) for p in pad))
+    if x.requires_grad and torch.is_grad_enabled():
+        return _FIR.apply(x, *args)
+    return _launch(x, *args)
 
 
 upfirdn2d_fir.launches = 0  # kernel launches; reset by whoever counts them

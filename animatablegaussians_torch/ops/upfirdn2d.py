@@ -15,10 +15,10 @@ numpy kernel that is rank-1 separable with at most 4 taps a side) goes
 through ``ops/fir.py::upfirdn2d_fir``: the CUDA kernel ``csrc/fir.cu`` for
 a tensor on the card, its plain version for one on the CPU. The JAX
 package's further gate of at least 32 channels keeps narrow maps out of
-the TPU kernel's VMEM blocks, where they lane-pad; the CUDA kernel runs one
-thread per output element whatever the channel count, so it is not kept
-(on the H100 it is faster than the library's depthwise convolution at the
-CNN's 3- and 8-channel calls too; ``PERF.md``). ``plain=True`` sends the
+the TPU kernel's VMEM blocks, where they lane-pad; the CUDA kernel tiles
+each image plane whatever the channel count, so it is not kept (on the
+H100 it is faster than the library's depthwise convolution at the CNN's
+3- and 8-channel calls too; ``PERF.md``). ``plain=True`` sends the
 gated calls to the plain version on any device (the reference the kernel
 path is held to). The rest is a depthwise ``F.conv2d``.
 """

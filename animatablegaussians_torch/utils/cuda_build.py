@@ -27,14 +27,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               # like the element-wise PyTorch ops of their plain versions
               "-fmad=false")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points: name -> argtypes (every one returns cudaGetLastError()).
 SIGNATURES = {
     "ag_expand_pairs": [_P, _P, _P, _I, _I, _P, _P, _P],
     "ag_blend_forward": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     "ag_blend_backward": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                           _P, _P, _P],
-    "ag_upfirdn2d_fir": [_P, _P] + [_I] * 12 + [_F] * 8 + [_P],
+    "ag_upfirdn2d_fir": [_P, _P, _P, _P],
 }
 
 _lib = None

@@ -27,7 +27,8 @@ itself. Phases, each printing a line, any failure exiting non-zero:
                 1,291,771 the JAX package bins on the same fixture, and a
                 small fixture against the CPU path;
   7. timing   - median ms/frame of render and render_sequence, each kernel
-                against its plain version (CUDA events, after warm-up);
+                against its plain version (CUDA events, after warm-up;
+                the kernels' device time as phase 11 reads it);
   8. profile  - where one render's time goes: median ms of its stages
                 (CUDA events between them), the splat's sub-stages, and the
                 device's busy time under torch.profiler against the median
@@ -47,12 +48,16 @@ itself. Phases, each printing a line, any failure exiting non-zero:
                 LPIPS's share, finite losses, moved parameters;
  10. pretrain - two full-width pretrain steps, finite losses;
  11. fir      - the FIR kernel (csrc/fir.cu) against its plain version at
-                every distinct FIR of one render, forward and backward (the
-                autograd VJP): max |kernel - plain| / max |plain|, and the
-                kernel's, the plain version's and the library call's ms
-                (a depthwise F.conv2d, or F.conv_transpose2d at up = 2)
-                beside the bound (input + output bytes over the memory
-                rate);
+                every distinct FIR of one train forward, forward (bitwise)
+                and backward (the autograd VJP, max |kernel - plain| / max
+                |plain|); per call and summed per direction, the kernel's
+                device time (CUDA events around calls queued behind a
+                sleep kernel), its time launch to launch (CUDA events over
+                back-to-back calls) and the host's time per call, the library
+                call's device and launch-to-launch times (a depthwise
+                F.conv2d, or F.conv_transpose2d at up = 2), the plain
+                version's, and the bound (input + output bytes over the
+                memory rate);
  12. fir_path - render, render_sequence and the B = 1 train step with the
                 FIRs through the kernel against the same calls with them
                 through the library call (swapped in here, never in the
@@ -84,6 +89,7 @@ is the kernels' JSON record; the last line is ``{"ok": true, "device":
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import statistics
@@ -111,8 +117,9 @@ ATOL_BLEND = {"color": 1e-5, "depth": 3e-5, "alpha": 1e-5}
 # backward kernel vs its plain version on the card, per channel of grad_rows,
 # relative to the channel's largest entry: the same per-pair arithmetic
 # (-fmad=false), but the plain version's cumprod and cumsum scan in another
-# order, the kernel sums each pair's pixels with warp shuffles and atomics in
-# an order that varies from run to run, and the suffix term (total - prefix)
+# order, the kernel sums each pair's pixels with warp shuffles and a sum
+# over the tile's warps, then across tiles with atomics in an order that
+# varies from run to run, and the suffix term (total - prefix)
 # cancels before it is divided by 1 - alpha
 RTOL_BLEND_BWD = 1e-3
 # step 0 through the kernels vs through the plain versions (phases 9 and 14)
@@ -130,6 +137,9 @@ RTOL_BLEND_BWD = 1e-3
 RTOL_LOSS = 1e-5
 RTOL_GRAD = 1e-2
 WARMUP_STEPS, TIMED_STEPS = 2, 5
+# the sleep kernel that holds the card while the host queues the calls
+# device_ms times (~25-30 ms of an H100's SM clock)
+SLEEP_CYCLES = 50_000_000
 # H100 SXM (NVIDIA data sheet): HBM3 rate and FP32 rate outside the tensor
 # cores, at the full 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
@@ -432,6 +442,17 @@ def fir_calls():
         fir._launch = inner
 
 
+@functools.lru_cache(maxsize=None)
+def _library_weight(kv, kh, flip: bool, c: int, device):
+    """The depthwise weight (C, 1, kh, kw) of ``fir_library``, made on the
+    device once per call shape: a copy from the host on every call would
+    wait for the card and time the wait, not the convolution."""
+    if flip:
+        kv, kh = kv[::-1], kh[::-1]
+    w = torch.outer(torch.tensor(kv), torch.tensor(kh)).to(device)
+    return w[None, None].expand(c, 1, len(kv), len(kh)).contiguous()
+
+
 def fir_library(x, kv, kh, up, down, pad):
     """The resampling of ``ops/fir.py::upfirdn2d_fir`` as one PyTorch call,
     for the calls the CNN makes: a depthwise F.conv2d (up = 1, even pads;
@@ -441,17 +462,15 @@ def fir_library(x, kv, kh, up, down, pad):
     px0, px1, py0, py1 = pad
     c = x.shape[1]
     if up == 1 and px0 == px1 >= 0 and py0 == py1 >= 0:
-        w = torch.outer(torch.tensor(kv[::-1]), torch.tensor(kh[::-1]))
         return torch.nn.functional.conv2d(
-            x, w.to(x.device)[None, None].expand(c, 1, len(kv), len(kh)),
-            stride=down, padding=(py0, px0), groups=c)
+            x, _library_weight(kv, kh, True, c, x.device), stride=down,
+            padding=(py0, px0), groups=c)
     crop = (len(kv) - 1 - py0, len(kh) - 1 - px0)
     extra = (py1 - py0 + 1, px1 - px0 + 1)
     if up == 2 and down == 1 and min(crop) >= 0 and set(extra) <= {0, 1}:
-        w = torch.outer(torch.tensor(kv), torch.tensor(kh))
         return torch.nn.functional.conv_transpose2d(
-            x, w.to(x.device)[None, None].expand(c, 1, len(kv), len(kh)),
-            stride=2, padding=crop, output_padding=extra, groups=c)
+            x, _library_weight(kv, kh, False, c, x.device), stride=2,
+            padding=crop, output_padding=extra, groups=c)
     raise AssertionError(f"no one-call library yardstick for up {up}, down "
                          f"{down}, pad {pad}")
 
@@ -495,12 +514,57 @@ def grad_errors(net, g_a: dict, g_b: dict) -> dict:
     return out
 
 
+def device_ms(fn, reps: int) -> float:
+    """Mean device time of what one call of ``fn`` launches: CUDA events
+    around ``reps`` back-to-back calls that the host enqueues while a sleep
+    kernel holds the card, so the events time the card's work and not the
+    host's (after a warm-up call). Raises if the enqueue outlasted the
+    sleep, which would let host time in."""
+    fn()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    ev[1].record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ev[2].record()
+    host = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    sleep = ev[0].elapsed_time(ev[1])
+    if not host < sleep:
+        raise RuntimeError(f"device_ms: the host took {host:.3f} ms to "
+                           f"enqueue, longer than the {sleep:.3f} ms sleep")
+    return ev[1].elapsed_time(ev[2]) / reps
+
+
+def host_ms(fn, reps: int) -> float:
+    """Mean host time of one call of ``fn``: the enqueue rate of ``reps``
+    calls after a synchronize (the card keeps up with the small calls, so
+    this is the wrapper's own cost and the launch's)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return t
+
+
 def fir_phase(calls, card: str, dev) -> dict:
     """Phase 11: the FIR kernel against its plain version and the library
     call at each distinct call of ``calls`` (``fir_calls`` records of one
-    train forward), forward and backward. Returns the kernel's JSON record,
-    its times the sums over the forward's calls; the backward's sums are
-    over the calls whose input carries a gradient."""
+    train forward), forward and backward (the autograd VJP of a call whose
+    input carries a gradient). For each: the forward bitwise against the
+    plain version, the backward within RTOL_FIR; the kernel's device time
+    (``device_ms``), its time launch to launch (CUDA events over 20
+    back-to-back calls, which include the host's cost where the card
+    waits for it), the host's time per call, the plain version's and the
+    library call's times and the bound. Returns the kernel's JSON record:
+    sums over the forward's calls and, for the ``bwd_`` keys, over the
+    calls whose input carries a gradient."""
     from animatablegaussians_torch.ops.fir import (grad_pads, upfirdn2d_fir,
                                                    upfirdn2d_fir_plain)
     counts = {}
@@ -508,8 +572,10 @@ def fir_phase(calls, card: str, dev) -> dict:
         n, n_grad = counts.get(key, (0, 0))
         counts[key] = (n + 1, n_grad + int(grad))
     gen = torch.Generator(device=dev).manual_seed(4)
-    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
-    tot_bwd = dict(tot)
+    names = ("ms", "device_ms", "host_ms", "plain_ms", "library_ms",
+             "library_device_ms", "bound_ms")
+    tot = dict.fromkeys(names, 0.0)
+    tot_bwd = dict.fromkeys(names, 0.0)
     worst = 0.0
     for (shape, kv, kh, up, down, pad), (n, n_grad) in counts.items():
         x = torch.randn(shape, generator=gen, device=dev)
@@ -517,7 +583,6 @@ def fir_phase(calls, card: str, dev) -> dict:
         yk, yp = upfirdn2d_fir(x, *args), upfirdn2d_fir_plain(x, *args)
         yl = fir_library(x, *args)
         fwd_abs = float((yk - yp).abs().max())
-        fwd_err = fwd_abs / float(yp.abs().max())
         lib_err = float((yl - yp).abs().max() / yp.abs().max())
         g = torch.randn(yk.shape, generator=gen, device=dev)
         xs = [x.clone().requires_grad_(True) for _ in range(3)]
@@ -528,41 +593,56 @@ def fir_phase(calls, card: str, dev) -> dict:
         bwd_abs = float((gk - gp).abs().max())
         bwd_err = bwd_abs / float(gp.abs().max())
         worst = max(worst, fwd_abs, bwd_abs)
-        ms = [cuda_ms(lambda: upfirdn2d_fir(x, *args), 20),
-              cuda_ms(lambda: upfirdn2d_fir_plain(x, *args), 5),
-              cuda_ms(lambda: fir_library(x, *args), 20)]
-        bms = [cuda_ms(lambda o=o, xi=xi: torch.autograd.grad(
-            o, xi, g, retain_graph=True), reps)
-            for o, xi, reps in zip(outs, xs, (20, 5, 20))]
-        b_fwd = bound((x.numel() + yk.numel()) * 4)[0]
-        b_bwd = bound((g.numel() + gk.numel()) * 4)[0]
+        if not (torch.equal(yk, yp) and bwd_err <= RTOL_FIR):
+            raise AssertionError(f"FIR kernel disagrees with plain at "
+                                 f"{shape} {pad}: forward max |diff| "
+                                 f"{fwd_abs} (want 0), backward {bwd_err}")
+        fwd = [lambda: upfirdn2d_fir(x, *args),
+               lambda: upfirdn2d_fir_plain(x, *args),
+               lambda: fir_library(x, *args)]
+        bwd = [lambda o=o, xi=xi: torch.autograd.grad(o, xi, g,
+                                                      retain_graph=True)
+               for o, xi in zip(outs, xs)]
+        t = {}
+        for d, fns in (("fwd", fwd), ("bwd", bwd)):
+            t[d] = dict(ms=cuda_ms(fns[0], 20),
+                        device_ms=device_ms(fns[0], 10),
+                        host_ms=host_ms(fns[0], 20),
+                        plain_ms=cuda_ms(fns[1], 5),
+                        library_ms=cuda_ms(fns[2], 20),
+                        library_device_ms=device_ms(fns[2], 10))
+        t["fwd"]["bound_ms"] = bound((x.numel() + yk.numel()) * 4)[0]
+        t["bwd"]["bound_ms"] = bound((g.numel() + gk.numel()) * 4)[0]
         gpad = grad_pads(shape[2:], len(kv), len(kh), up, down, pad)
         phase("fir", f"{n:2d}x ({n_grad} with a gradient) {tuple(shape)} up "
               f"{up} down {down} pad {pad} -> {tuple(yk.shape[1:])}: fwd "
-              f"rel err {fwd_err:.1e}, kernel {ms[0]:.4f} ms, plain "
-              f"{ms[1]:.4f}, library {ms[2]:.4f} (rel {lib_err:.1e}), bound "
-              f"{b_fwd:.4f}; bwd (pad {gpad}) rel err {bwd_err:.1e}, kernel "
-              f"{bms[0]:.4f} ms, plain {bms[1]:.4f}, library {bms[2]:.4f}, "
-              f"bound {b_bwd:.4f}")
-        if not (fwd_err <= RTOL_FIR and bwd_err <= RTOL_FIR):
-            raise AssertionError(f"FIR kernel disagrees with plain at "
-                                 f"{shape} {pad}: {fwd_err} {bwd_err}")
-        for key, v, vb in zip(("ms", "plain_ms", "library_ms", "bound_ms"),
-                              ms + [b_fwd], bms + [b_bwd]):
-            tot[key] += n * v
-            tot_bwd[key] += n_grad * vb
+              f"bitwise equal, library rel err {lib_err:.1e}; bwd (pad "
+              f"{gpad}) rel err {bwd_err:.1e}")
+        for d in ("fwd", "bwd"):
+            v = t[d]
+            phase("fir", f"    {d}: kernel device {v['device_ms']:.4f} ms, "
+                  f"launch to launch {v['ms']:.4f}, host {v['host_ms']:.4f};"
+                  f" library device {v['library_device_ms']:.4f}, launch to "
+                  f"launch {v['library_ms']:.4f}; plain {v['plain_ms']:.4f};"
+                  f" bound {v['bound_ms']:.4f}")
+        for key in names:
+            tot[key] += n * t["fwd"][key]
+            tot_bwd[key] += n_grad * t["bwd"][key]
     n_grad = sum(int(grad) for _, grad in calls)
-    for name, t, k in (("forward", tot, len(calls)),
+    for name, v, k in (("forward", tot, len(calls)),
                        ("backward", tot_bwd, n_grad)):
         phase("fir", f"{k} calls a train {name} ({len(counts)} distinct "
-              f"shapes): kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f}, "
-              f"library {t['library_ms']:.3f}, bound {t['bound_ms']:.3f} "
-              f"({card})")
+              f"shapes): kernel device {v['device_ms']:.3f} ms, launch to "
+              f"launch {v['ms']:.3f}, host {v['host_ms']:.3f}; library "
+              f"device {v['library_device_ms']:.3f}, launch to launch "
+              f"{v['library_ms']:.3f}; plain {v['plain_ms']:.3f}; bound "
+              f"{v['bound_ms']:.3f} ({card})")
     return dict(name="upfirdn2d_fir", route="cuda",
                 source="animatablegaussians_torch/csrc/fir.cu",
                 replaces="animatablegaussians_tpu/ops/fir_pallas.py:180 "
                          "(_vhfir_kernel; pl.pallas_call at :231)",
-                bound_by="bytes", max_abs_err=worst, **tot)
+                bound_by="bytes", max_abs_err=worst, **tot,
+                **{f"bwd_{k}": v for k, v in tot_bwd.items()})
 
 
 def main() -> int:
@@ -664,6 +744,8 @@ def main() -> int:
             max_abs_err=float(expand_err),
             ms=cuda_ms(lambda: expand_pairs(rect, depth, offs, total, gx),
                        20),
+            device_ms=device_ms(lambda: expand_pairs(rect, depth, offs,
+                                                     total, gx), 10),
             plain_ms=cuda_ms(lambda: expand_pairs_plain(rect, depth, offs,
                                                         total, gx), 5)))
 
@@ -696,6 +778,7 @@ def main() -> int:
             bound_ms=b_ms, bound_by=b_by, library_ms=None,
             max_abs_err=max(errs.values()),
             ms=cuda_ms(lambda: blend_tiles(*args), 20),
+            device_ms=device_ms(lambda: blend_tiles(*args), 10),
             plain_ms=cuda_ms(lambda: blend_tiles_plain(*args), 3, 1)))
         splat_ms["blend kernel"] = records[-1]["ms"]
 
@@ -731,6 +814,7 @@ def main() -> int:
             bound_ms=b_ms, bound_by=b_by, library_ms=None,
             max_abs_err=float((g_k - g_p).abs().max()),
             ms=cuda_ms(lambda: blend_backward(*bargs), 20),
+            device_ms=device_ms(lambda: blend_backward(*bargs), 10),
             plain_ms=cuda_ms(lambda: blend_backward_plain(*bargs), 3, 1)))
         phase("blend_bwd", f"kernel {records[-1]['ms']:.3f} ms, plain "
               f"{records[-1]['plain_ms']:.3f} ms, bound "
@@ -813,7 +897,8 @@ def main() -> int:
           f"{statistics.median(t_seq):.2f} ms/frame over {len(t_seq)} runs "
           f"{['%.2f' % t for t in t_seq]}")
     for r in records:
-        phase("timing", f"{r['name']}: kernel {r['ms']:.3f} ms, plain "
+        phase("timing", f"{r['name']}: kernel {r['ms']:.3f} ms launch to "
+              f"launch, {r['device_ms']:.3f} ms device, plain "
               f"{r['plain_ms']:.3f} ms at the slice's shapes ({card})")
 
     # -- 8. profile: where one render's time goes -------------------------

@@ -493,3 +493,52 @@ def test_render_gradients_match_jax(seed, n_pad):
         # order; relative to the input's whole gradient
         err = np.linalg.norm(x.grad.numpy() - w) / np.linalg.norm(w)
         assert err < 1e-4, (name, err)
+
+
+def _warp_reduce_scatter(v):
+    """csrc/blend_bwd.cu's butterfly over one warp: v (32 lanes, 16) ->
+    each lane's v[0] after scatter_step<16,16>, <8,8>, <4,4>, <2,2> and the
+    last xor-1 add, in the kernel's float32 order."""
+    a = v.astype(np.float32).copy()
+    lanes = np.arange(32)
+    for n, o in ((16, 16), (8, 8), (4, 4), (2, 2)):
+        upper = (lanes & o) != 0
+        lo, hi = a[:, :n // 2].copy(), a[:, n // 2:n].copy()
+        send = np.where(upper[:, None], lo, hi)
+        keep = np.where(upper[:, None], hi, lo)
+        a[:, :n // 2] = keep + send[lanes ^ o]
+    return a[:, 0] + a[lanes ^ 1, 0]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_backward_kernel_cta_reduction(seed):
+    """The backward kernel's reduction of a batch's per-pixel terms, in
+    numpy: per (warp, pair), a reduce-scatter leaves lanes 2c and 2c + 1
+    with the warp's sum of channel c (channels 10-15 are padding); per
+    (pair, channel), the 8 warps' sums are added in warp order. Held to the
+    plain sum over the tile's 256 pixels; the order differs, so to float32
+    rounding. Warps with no contributing lane write nothing (their slots
+    stay 0)."""
+    rng = np.random.default_rng(seed)
+    n_pairs = 5
+    terms = rng.standard_normal((n_pairs, 256, tblend.ROW)).astype(
+        np.float32)
+    terms[:, 64:96] = 0.0                   # warp 2 never contributes
+    red = np.zeros((8, n_pairs, tblend.ROW), np.float32)
+    for j in range(n_pairs):
+        for w in range(8):
+            v = np.zeros((32, 16), np.float32)
+            v[:, :tblend.ROW] = terms[j, 32 * w:32 * (w + 1)]
+            if not v.any():
+                continue
+            s = _warp_reduce_scatter(v)
+            for lane in range(0, 32, 2):
+                if lane >> 1 < tblend.ROW:
+                    assert s[lane] == s[lane + 1]
+                    red[w, j, lane >> 1] = s[lane]
+    got = red[0].copy()
+    for w in range(1, 8):
+        got = got + red[w]
+    want = terms.astype(np.float64).sum(axis=1)
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-5 * np.abs(terms).sum(axis=1).max())
