@@ -156,16 +156,20 @@ def blend_tiles(rows, gid, starts, grid_x: int, grid_y: int, img_w: int,
     if not (gid.device == starts.device == rows.device):
         raise ValueError("blend_tiles: inputs on different devices")
     rows, gid, starts = rows.contiguous(), gid.contiguous(), starts.contiguous()
+    if rows.data_ptr() % 8:
+        raise ValueError("blend_tiles: rows must be 8-byte aligned (the "
+                         "kernel stages them with 8-byte copies)")
     dev = rows.device
     color = torch.empty((img_h, img_w, 3), dtype=torch.float32, device=dev)
     depth = torch.empty((img_h, img_w), dtype=torch.float32, device=dev)
     t_final = torch.empty((img_h, img_w), dtype=torch.float32, device=dev)
+    order = torch.empty((n_tiles,), dtype=torch.int32, device=dev)  # scratch
     lib = cuda_build.load()
     with torch.cuda.device(dev):
         err = lib.ag_blend_forward(
-            rows.data_ptr(), gid.data_ptr(), starts.data_ptr(), grid_x,
-            grid_y, img_w, img_h, color.data_ptr(), depth.data_ptr(),
-            t_final.data_ptr(), cuda_build.stream_of(rows))
+            rows.data_ptr(), gid.data_ptr(), starts.data_ptr(),
+            order.data_ptr(), grid_x, grid_y, img_w, img_h, color.data_ptr(),
+            depth.data_ptr(), t_final.data_ptr(), cuda_build.stream_of(rows))
     cuda_build.check(err, "blend_tiles")
     blend_tiles.launches += 1
     return color, depth, t_final

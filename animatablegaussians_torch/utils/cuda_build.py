@@ -31,7 +31,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points: name -> argtypes (every one returns cudaGetLastError()).
 SIGNATURES = {
     "ag_expand_pairs": [_P, _P, _P, _I, _I, _P, _P, _P],
-    "ag_blend_forward": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    "ag_blend_forward": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     "ag_blend_backward": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                           _P, _P, _P],
     "ag_upfirdn2d_fir": [_P, _P, _P, _P],

@@ -14,7 +14,11 @@ itself. Phases, each printing a line, any failure exiting non-zero:
                 shapes (531,520 Gaussians, 1500x2048): keys, gids and
                 tile ranges must be equal;
   4. blend    - tile-blend kernel vs its plain version on the same pairs,
-                and the (pixel, pair) work this frame's data needs;
+                and the (pixel, pair) work this frame's data needs: the
+                evaluations a walk over every pair makes, those the
+                kernel's per-warp cull leaves (its cull box, mirrored in
+                torch; no contribution may be culled) and the
+                contributions;
   5. blend_bwd - backward tile-blend kernel vs its plain version on the
                 same pairs with seeded cotangents, per channel, both timed;
   6. slice    - the full-width fixture (tools/render_fixture.py): one
@@ -81,7 +85,10 @@ itself. Phases, each printing a line, any failure exiting non-zero:
 Each kernel's record carries its bound: the least time the card could take
 for the same work, the larger of the bytes it must move over the memory
 rate and the operations it must do, counted from this run's data, over the
-FP32 rate (the H100 SXM data sheet figures below). The line before the last
+FP32 rate (the H100 SXM data sheet figures below). The blends' operations
+are those of the contributing (pixel, pair) evaluations only, since a
+kernel that culls can skip the others; ``bound_eval_ms`` keeps the earlier
+figure, which charged every evaluation. The line before the last
 is the kernels' JSON record; the last line is ``{"ok": true, "device":
 {...}}``. TF32 is off for matmuls and convs.
 """
@@ -97,6 +104,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 # (Gaussian, tile) pairs the JAX package bins for this fixture at init
@@ -355,27 +363,73 @@ def bound(n_bytes: float, n_ops: float = 0.0):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def cull_boxes(rows):
+    """(N, 4) [x0 x1 y0 y1]: ``csrc/blend.cu``'s ``cull_box`` in float32
+    torch operations, each rounded as the kernel rounds it (-fmad=false):
+    outside its box a pair fails power <= 0 and alpha >= 1/255 at every
+    pixel; an infinite box never culls, an empty one always does."""
+    f32 = lambda v: float(np.float32(v))
+    x, y, ca, cb, cc, op = rows[:, :6].unbind(1)
+    big = 2.0 ** 40
+    sound = ((x.abs() <= 2.0 ** 24) & (y.abs() <= 2.0 ** 24) & (ca > 0)
+             & (ca <= big) & (cc > 0) & (cc <= big) & (cb.abs() <= big)
+             & (op.abs() <= f32(3.4028234e38)))
+    empty = op < f32(np.float32(1) / np.float32(255) * np.float32(0.99999))
+    det = ca * cc - cb * cb
+    hd = 0.5 * (ca - cc)
+    lmax = 0.5 * (ca + cc) + torch.sqrt(hd * hd + cb * cb)
+    kappa = lmax * lmax / det
+    tau = torch.log(255.0 * op)
+    tau_m = torch.clamp(tau * (1.0 + 2.0 ** -16) + 2.0 ** -16, min=0.0)
+    t2 = 2.0 * tau_m * (1.0 + 2.0 ** -18 * kappa)
+    hx = torch.sqrt(t2 * cc / det)
+    hy = torch.sqrt(t2 * ca / det)
+    sx = (x.abs() + hx + 1.0) * 2.0 ** -20
+    sy = (y.abs() + hy + 1.0) * 2.0 ** -20
+    box = torch.stack([x - hx - sx, x + hx + sx, y - hy - sy, y + hy + sy], 1)
+    inf = float("inf")
+    never = torch.tensor([-inf, inf, -inf, inf], device=rows.device)
+    finite = sound & ~empty & (det >= f32(1e-30)) & (kappa <= 1e4)
+    box = torch.where(finite[:, None], box, never)
+    return torch.where((sound & empty)[:, None], -never, box)
+
+
 def pair_work(rows, gid, starts, grid_x, img_w, img_h):
-    """(evaluated, contributing) (pixel, pair) counts this frame's data
-    needs in the blend: a pixel evaluates its tile's pairs front to back up
-    to and including the one that would take it below the 1e-4 cutoff, and
-    a pair contributes when it passes the tests before that."""
+    """(evaluated, evaluated after the cull, contributing) (pixel, pair)
+    counts this frame's data needs in the blend: a pixel evaluates its
+    tile's pairs front to back up to and including the one that would take
+    it below the 1e-4 cutoff; the forward kernel evaluates only those whose
+    cull box (``cull_boxes``) meets the pixel's warp's 8x4 rectangle; a pair
+    contributes when it passes the tests before the cutoff. Raises if the
+    cull would drop a contributing (pixel, pair)."""
     from animatablegaussians_torch.ops.rasterize import blend
     P = blend.TILE * blend.TILE
     lp = torch.arange(P, device=rows.device)
-    n_eval = n_contrib = 0
+    boxes = cull_boxes(rows)
+    n_eval = n_cull = n_contrib = 0
     with torch.no_grad():
-        for tb, _, kmask, _, geo in blend._batches(rows, gid, starts,
-                                                    grid_x):
+        for tb, g, kmask, _, geo in blend._batches(rows, gid, starts,
+                                                   grid_x):
             _, pexc, contrib, _ = blend._transmittance(geo["alpha"],
                                                        geo["use"])
             px = (tb % grid_x * blend.TILE)[:, None] + lp[None] % blend.TILE
             py = (tb // grid_x * blend.TILE)[:, None] + lp[None] // blend.TILE
             inside = ((px < img_w) & (py < img_h))[:, :, None]
-            n_eval += int((inside & kmask[:, None, :]
-                           & (pexc >= blend.T_EPS)).sum())
+            # the pixel's warp rectangle, as floats (B, P, 1)
+            wx0 = (px - px % 8).float()[:, :, None]
+            wy0 = (py - py % 4).float()[:, :, None]
+            b = boxes[g][:, None]                             # (B, 1, K, 4)
+            hit = ~((b[..., 1] < wx0) | (b[..., 0] > wx0 + 7.0)
+                    | (b[..., 3] < wy0) | (b[..., 2] > wy0 + 3.0))
+            live = inside & kmask[:, None, :] & (pexc >= blend.T_EPS)
+            n_eval += int(live.sum())
+            n_cull += int((live & hit).sum())
             n_contrib += int((inside & contrib).sum())
-    return n_eval, n_contrib
+            lost = int((inside & contrib & ~hit).sum())
+            if lost:
+                raise AssertionError(f"the cull box drops {lost} contributing "
+                                     "(pixel, pair) evaluations")
+    return n_eval, n_cull, n_contrib
 
 
 def param_groups(net) -> dict:
@@ -763,20 +817,32 @@ def main() -> int:
         bad = {n: e for n, e in errs.items() if not e <= ATOL_BLEND[n]}
         if bad:
             raise AssertionError(f"blend kernel disagrees: {bad}")
-        n_eval, n_contrib = pair_work(rows, kb.gid, kb.starts, gx, W, H)
+        n_eval, n_cull, n_contrib = pair_work(rows, kb.gid, kb.starts, gx,
+                                              W, H)
         phase("blend", f"this frame's blend work: {n_eval} (pixel, pair) "
-              f"evaluations, {n_contrib} contributions")
-        # rows, gids and ranges in; colour, depth and T_final out
-        b_ms, b_by = bound(n_pts * 40 + total * 4 + (gx * gy + 1) * 8
-                           + W * H * 5 * 4,
-                           n_eval * OPS_EVAL + n_contrib * OPS_FWD_CONTRIB)
+              f"evaluations a walk over every pair makes (n_eval), {n_cull} "
+              f"after the forward kernel's per-warp cull "
+              f"({100 * n_cull / max(n_eval, 1):.1f}%), {n_contrib} "
+              "contributions (n_contrib); no contribution culled")
+        # rows, gids and ranges in; colour, depth and T_final out; the
+        # operations of the contributing evaluations (a kernel that culls
+        # can skip the others, so counting them would not bound it)
+        fwd_bytes = n_pts * 40 + total * 4 + (gx * gy + 1) * 8 + W * H * 5 * 4
+        b_ms, b_by = bound(fwd_bytes,
+                           n_contrib * (OPS_EVAL + OPS_FWD_CONTRIB))
+        old_ms, old_by = bound(fwd_bytes, n_eval * OPS_EVAL
+                               + n_contrib * OPS_FWD_CONTRIB)
+        phase("blend", f"bound {b_ms:.4f} ms ({b_by}; bytes and "
+              f"contributions); the earlier figure, which charged every "
+              f"evaluation: {old_ms:.4f} ms ({old_by})")
         records.append(dict(
             name="blend_tiles", route="cuda",
             source="animatablegaussians_torch/csrc/blend.cu",
             replaces="animatablegaussians_tpu/ops/rasterize/blend_pallas.py"
                      ":282 (_fwd_chunk_kernel) and :114 (_fwd_kernel)",
-            bound_ms=b_ms, bound_by=b_by, library_ms=None,
-            max_abs_err=max(errs.values()),
+            bound_ms=b_ms, bound_by=b_by, bound_eval_ms=old_ms,
+            library_ms=None, max_abs_err=max(errs.values()),
+            n_eval=n_eval, n_cull=n_cull, n_contrib=n_contrib,
             ms=cuda_ms(lambda: blend_tiles(*args), 20),
             device_ms=device_ms(lambda: blend_tiles(*args), 10),
             plain_ms=cuda_ms(lambda: blend_tiles_plain(*args), 3, 1)))
@@ -802,23 +868,28 @@ def main() -> int:
         if not (min(scale.tolist()) > 0 and max(rel) <= RTOL_BLEND_BWD):
             raise AssertionError(f"blend backward kernel disagrees: {rel}")
         # rows, gids, ranges, three totals and three cotangents in;
-        # grad_rows out
-        b_ms, b_by = bound(n_pts * 40 * 2 + total * 4 + (gx * gy + 1) * 8
-                           + W * H * 5 * 4 * 2,
-                           n_eval * OPS_EVAL + n_contrib * OPS_BWD_CONTRIB)
+        # grad_rows out; the contributing evaluations' operations, as for
+        # the forward
+        bwd_bytes = (n_pts * 40 * 2 + total * 4 + (gx * gy + 1) * 8
+                     + W * H * 5 * 4 * 2)
+        b_ms, b_by = bound(bwd_bytes, n_contrib * (OPS_EVAL + OPS_BWD_CONTRIB))
+        old_ms, old_by = bound(bwd_bytes, n_eval * OPS_EVAL
+                               + n_contrib * OPS_BWD_CONTRIB)
         records.append(dict(
             name="blend_backward", route="cuda",
             source="animatablegaussians_torch/csrc/blend_bwd.cu",
             replaces="animatablegaussians_tpu/ops/rasterize/blend_pallas.py"
                      ":338 (_bwd_chunk_kernel) and :170 (_bwd_kernel)",
-            bound_ms=b_ms, bound_by=b_by, library_ms=None,
-            max_abs_err=float((g_k - g_p).abs().max()),
+            bound_ms=b_ms, bound_by=b_by, bound_eval_ms=old_ms,
+            library_ms=None, max_abs_err=float((g_k - g_p).abs().max()),
             ms=cuda_ms(lambda: blend_backward(*bargs), 20),
             device_ms=device_ms(lambda: blend_backward(*bargs), 10),
             plain_ms=cuda_ms(lambda: blend_backward_plain(*bargs), 3, 1)))
         phase("blend_bwd", f"kernel {records[-1]['ms']:.3f} ms, plain "
               f"{records[-1]['plain_ms']:.3f} ms, bound "
-              f"{records[-1]['bound_ms']:.3f} ms ({b_by})")
+              f"{records[-1]['bound_ms']:.4f} ms ({b_by}; bytes and "
+              f"contributions); the earlier figure, which charged every "
+              f"evaluation: {old_ms:.4f} ms ({old_by})")
         del k_keys, k_gids, p_keys, p_gids, kb, pb, k_out, p_out
         del g_k, g_k2, g_p, bargs, cots
 

@@ -542,3 +542,330 @@ def test_backward_kernel_cta_reduction(seed):
     want = terms.astype(np.float64).sum(axis=1)
     np.testing.assert_allclose(got, want, rtol=0,
                                atol=1e-5 * np.abs(terms).sum(axis=1).max())
+
+
+# ---------------------------------------------------------------------------
+# CPU emulations of the forward blend kernel's cull and walk
+# (csrc/blend.cu) and of the expansion kernel's slot search (csrc/expand.cu)
+# ---------------------------------------------------------------------------
+
+F32 = np.float32
+INF = np.inf
+
+
+def _np_cull_box(rows):
+    """csrc/blend.cu's cull_box in numpy float32, operation for operation:
+    (N, 4) [x0 x1 y0 y1]; infinite where the margin is not bounded, empty
+    where op can never reach 1/255."""
+    r = np.asarray(rows, np.float32)
+    x, y, ca, cb, cc, op = (r[:, i] for i in range(6))
+    big = F32(2.0 ** 40)
+    with np.errstate(all="ignore"):
+        sound = ((np.abs(x) <= F32(2.0 ** 24)) & (np.abs(y) <= F32(2.0 ** 24))
+                 & (ca > 0) & (ca <= big) & (cc > 0) & (cc <= big)
+                 & (np.abs(cb) <= big) & (np.abs(op) <= F32(3.4028234e38)))
+        empty = op < F32(1) / F32(255) * F32(0.99999)
+        det = ca * cc - cb * cb
+        hd = F32(0.5) * (ca - cc)
+        lmax = F32(0.5) * (ca + cc) + np.sqrt(hd * hd + cb * cb)
+        kappa = lmax * lmax / det
+        tau = np.log(F32(255) * op)
+        tau_m = np.maximum(tau * F32(1 + 2.0 ** -16) + F32(2.0 ** -16), F32(0))
+        t2 = F32(2) * tau_m * (F32(1) + F32(2.0 ** -18) * kappa)
+        hx = np.sqrt(t2 * cc / det)
+        hy = np.sqrt(t2 * ca / det)
+        sx = (np.abs(x) + hx + F32(1)) * F32(2.0 ** -20)
+        sy = (np.abs(y) + hy + F32(1)) * F32(2.0 ** -20)
+        box = np.stack([x - hx - sx, x + hx + sx, y - hy - sy, y + hy + sy], 1)
+        finite = sound & ~empty & (det >= F32(1e-30)) & (kappa <= F32(1e4))
+    box = np.where(finite[:, None], box, np.array([-INF, INF, -INF, INF]))
+    box = np.where((sound & empty)[:, None], np.array([INF, -INF, INF, -INF]),
+                   box)
+    return box.astype(np.float32)
+
+
+def _np_pass(r, pxf, pyf):
+    """The blend's per-(pixel, pair) tests in float32 without fused
+    multiply-adds, in the kernel's order: (passes, alpha)."""
+    dx = r[..., 0] - pxf
+    dy = r[..., 1] - pyf
+    with np.errstate(all="ignore"):
+        power = (F32(-0.5) * (r[..., 2] * dx * dx + r[..., 4] * dy * dy)
+                 - r[..., 3] * dx * dy)
+        alpha = np.minimum(F32(0.99), r[..., 5] * np.exp(power))
+    return (power <= 0) & (alpha >= F32(1) / F32(255)), alpha
+
+
+def _adversarial_rows(seed, n, w, h):
+    """Packed rows with thin rotated ellipses (|cb| near sqrt(ca cc)),
+    condition numbers past the cull's 1e4 limit, large splats, op just
+    above 1/255, just below it (inside and past the empty box's 1e-5
+    margin) and 0.99, and centres moved so that the ellipse's x extreme
+    falls on an integer pixel."""
+    rng = np.random.default_rng(seed)
+    s1 = np.exp(rng.uniform(np.log(0.2), np.log(70.0), n))
+    s2 = np.where(rng.random(n) < 0.5, rng.uniform(0.005, 0.3, n),
+                  np.exp(rng.uniform(np.log(0.2), np.log(20.0), n)))
+    th = np.where(rng.random(n) < 0.5, np.pi / 4, rng.uniform(0, np.pi, n))
+    c, s = np.cos(th), np.sin(th)
+    a = c * c * s1 ** 2 + s * s * s2 ** 2 + 0.3
+    b = c * s * (s1 ** 2 - s2 ** 2)
+    d = s * s * s1 ** 2 + c * c * s2 ** 2 + 0.3
+    det = a * d - b * b
+    rows = np.zeros((n, 10), np.float32)
+    rows[:, 0] = rng.uniform(0, w, n)
+    rows[:, 1] = rng.uniform(0, h, n)
+    rows[:, 2], rows[:, 3], rows[:, 4] = d / det, -b / det, a / det
+    thr = F32(1) / F32(255)
+    rows[:, 5] = rng.choice(np.array(
+        [np.nextafter(thr, F32(1)), thr * F32(1.00001), thr * F32(1.001),
+         thr * F32(0.999995), thr * F32(0.9999), 0.02, 0.3, 0.99],
+        np.float32), n)
+    rows[:, 6:] = rng.uniform(0.1, 1.0, (n, 4))
+    # move each centre so that the float64 ellipse d^T Q d = 2 ln(255 op)
+    # touches its x extreme at an integer pixel: that pixel passes or fails
+    # by rounding alone, and the one past it is just outside
+    r64 = rows.astype(np.float64)
+    ca, cb, cc, op = r64[:, 2], r64[:, 3], r64[:, 4], r64[:, 5]
+    with np.errstate(invalid="ignore"):
+        hx = np.sqrt(2 * np.log(255 * op) * cc / (ca * cc - cb * cb))
+    dy = -cb / cc * hx
+    ok = np.isfinite(hx)
+    rows[ok, 0] = np.round(r64[ok, 0] + hx[ok]) - hx[ok]
+    rows[ok, 1] = np.round(r64[ok, 1] + dy[ok]) - dy[ok]
+    return rows
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_forward_cull_box_keeps_every_passing_pair(seed):
+    """(a) Every (pixel, pair) outside the numpy cull box (the kernel's
+    formula and margin in float32) fails power <= 0 and alpha >= 1/255
+    computed in float32 without fused multiply-adds. Pixels are tested one
+    by one (a warp culls only where its whole rectangle misses the box, so
+    this is the stricter check). The box is not vacuous either: it drops
+    most pairs, stays within 2% of the float64 footprint for well-
+    conditioned pairs, and passing pixels lie within 1e-3 pixel of its
+    edge."""
+    w, h, n = 160, 128, 60
+    rows = _adversarial_rows(seed, n, w, h)
+    box = _np_cull_box(rows)
+    py, px = np.meshgrid(np.arange(h, dtype=np.float32),
+                         np.arange(w, dtype=np.float32), indexing="ij")
+    pxf, pyf = px.reshape(-1, 1), py.reshape(-1, 1)         # (P, 1)
+    ok, _ = _np_pass(rows[None], pxf, pyf)                   # (P, N)
+    outside = ((pxf < box[None, :, 0]) | (pxf > box[None, :, 1])
+               | (pyf < box[None, :, 2]) | (pyf > box[None, :, 3]))
+    assert not (ok & outside).any()
+    assert ok.sum() > 1000 and outside.mean() > 0.5
+    # passing pixels within 1e-3 pixel of a finite box's x edge: there the
+    # margin, not the ellipse, keeps them
+    fin = np.isfinite(box[:, 0])
+    gap = np.where(ok & fin[None], box[None, :, 1] - pxf, np.inf)
+    assert 0 <= gap.min() < 1e-3
+    # some boxes are infinite (kappa past 1e4) and some empty (op too low)
+    assert (~fin).any() and (box[:, 0] > box[:, 1]).any()
+    assert not ok[:, box[:, 0] > box[:, 1]].any()
+    # chip_smoke.py counts the cull's evaluations with a torch copy of the
+    # box: the same classification, the same edges to float32 rounding
+    import chip_smoke
+    tbox = chip_smoke.cull_boxes(torch.as_tensor(rows)).numpy()
+    np.testing.assert_array_equal(np.isfinite(tbox), np.isfinite(box))
+    np.testing.assert_allclose(tbox, box, rtol=1e-6, atol=0)
+    # tightness: half-width against the float64 ellipse's
+    r64 = rows.astype(np.float64)
+    ca, cb, cc, op = r64[:, 2], r64[:, 3], r64[:, 4], r64[:, 5]
+    det = ca * cc - cb * cb
+    with np.errstate(invalid="ignore"):
+        exact = np.sqrt(2 * np.log(255 * op) * cc / det)
+    well = fin & (op > 0.01) & (np.maximum(ca, cc) / np.minimum(ca, cc) < 10)
+    assert well.any()
+    half = 0.5 * (box[well, 1] - box[well, 0]).astype(np.float64)
+    assert np.all(half <= 1.02 * exact[well] + 1e-3)
+
+
+def _np_tile_order(counts):
+    """The pre-pass's order of tiles: bucket 254 - min(count // 8, 254) for
+    a tile with pairs, 255 for an empty one, ascending (the kernel orders
+    tiles of one bucket as its atomics land; any such order is the same
+    to the output)."""
+    counts = np.asarray(counts, np.int64)
+    bucket = np.where(counts == 0, 255, 254 - np.minimum(counts >> 3, 254))
+    return np.argsort(bucket, kind="stable"), bucket
+
+
+def _emulate_forward_kernel(rows, gid, starts, gx, gy, w, h, cull=True):
+    """csrc/blend.cu's blend in numpy float32: tiles in the pre-pass's
+    order; per tile, warp w on the 8x4 rectangle at ((w % 2) 8, (w / 2) 4),
+    lane l on its pixel (l % 8, l / 8); per batch of 256 pairs the warp's
+    ballot words (bit l of word i: pair 32 i + l's box meets the warp's
+    rectangle, or every pair with ``cull=False``) walked bit by bit in
+    ascending order. Returns (colour (H, W, 3), depth, T_final, lane
+    evaluations, pixels that reached the cutoff)."""
+    rows = rows.numpy().astype(np.float32)
+    gid, starts = gid.numpy(), starts.numpy()
+    box = _np_cull_box(rows)
+    out = np.full((h, w, 5), np.nan, np.float32)   # every pixel is written
+    n_eval = n_sat = 0
+    lane = np.arange(32)
+    order, _ = _np_tile_order(starts[1:] - starts[:-1])
+    for t in order:
+        a, b = int(starts[t]), int(starts[t + 1])
+        for warp in range(8):
+            rx0 = (t % gx) * 16 + (warp & 1) * 8
+            ry0 = (t // gx) * 16 + (warp >> 1) * 4
+            px, py = rx0 + lane % 8, ry0 + lane // 8
+            inside = (px < w) & (py < h)
+            pxf, pyf = px.astype(np.float32), py.astype(np.float32)
+            T = np.ones(32, np.float32)
+            acc = np.zeros((32, 4), np.float32)
+            done = ~inside
+            for base in range(a, b, 256):
+                g = gid[base:min(b, base + 256)]
+                bx = box[g]
+                hit = ~((bx[:, 1] < rx0) | (bx[:, 0] > rx0 + 7)
+                        | (bx[:, 3] < ry0) | (bx[:, 2] > ry0 + 3))
+                if not cull:
+                    hit[:] = True
+                for i in range(0, len(g), 32):          # ballot words
+                    for j in i + np.flatnonzero(hit[i:i + 32]):
+                        r = rows[g[j]]
+                        ok, alpha = _np_pass(r, pxf, pyf)
+                        n_eval += int((~done).sum())
+                        ok &= ~done
+                        test_t = T * (F32(1) - alpha)
+                        sat = ok & (test_t < F32(1e-4))
+                        done = done | sat
+                        n_sat += int(sat.sum())
+                        ok &= ~sat
+                        wt = alpha * T
+                        acc = np.where(ok[:, None], acc + wt[:, None] * r[6:10],
+                                       acc)
+                        T = np.where(ok, test_t, T)
+                    if done.all():
+                        break
+            out[py[inside], px[inside], :4] = acc[inside]
+            out[py[inside], px[inside], 4] = T[inside]
+    assert not np.isnan(out).any()
+    return out[..., :3], out[..., 3], out[..., 4], n_eval, n_sat
+
+
+@pytest.mark.parametrize("w,h", [(64, 48), (60, 44)])
+def test_forward_kernel_warp_walk_matches_plain(w, h):
+    """(b) The kernel's cull, ballot and walk, emulated in numpy, give
+    bit for bit what the same walk over every pair gives, and agree with
+    blend_tiles_plain within 1e-5. Opaque Gaussians take some pixels to
+    the 1e-4 cutoff; 60x44 leaves pixels of the last tiles outside."""
+    s = make_scene(n=300, seed=3, w=w, h=h)
+    s["opac"][::2] = 0.99
+    rows, bins = _port_bins(s)
+    gx, gy = -(-w // TILE), -(-h // TILE)
+    got = _emulate_forward_kernel(rows, bins.gid, bins.starts, gx, gy, w, h)
+    full = _emulate_forward_kernel(rows, bins.gid, bins.starts, gx, gy, w, h,
+                                   cull=False)
+    for a, b in zip(got[:3], full[:3]):
+        np.testing.assert_array_equal(a, b)
+    assert got[3] < 0.6 * full[3]           # the cull dropped evaluations
+    assert got[4] == full[4] > 0            # pixels reached the cutoff
+    want = tblend.blend_tiles_plain(rows, bins.gid, bins.starts, gx, gy, w, h)
+    for a, b in zip(got[:3], want):
+        np.testing.assert_allclose(a, b.numpy(), rtol=0, atol=1e-5)
+
+
+def test_forward_kernel_tile_order_and_empty_tiles():
+    """(c) The pre-pass puts every tile once, heaviest bucket first and
+    empty tiles last; an empty tile's pixels come out colour 0, depth 0,
+    T_final 1, in the emulation and in blend_tiles_plain alike."""
+    counts = np.array([0, 5, 1366, 0, 9, 810, 2100, 8, 0, 16])
+    order, bucket = _np_tile_order(counts)
+    assert sorted(order) == list(range(len(counts)))
+    assert np.all(np.diff(bucket[order]) >= 0)
+    assert list(order[-3:]) == [0, 3, 8] and order[0] == 6
+    rows = torch.tensor([[8.0, 6.0, 0.5, 0.0, 0.5, 0.9, 1.0, 0.5, 0.2, 2.0]])
+    gid = torch.zeros(1, dtype=torch.int32)
+    starts = torch.tensor([0, 1, 1, 1])   # tile 0 holds the pair; tile 2
+    got = _emulate_forward_kernel(rows, gid, starts, 3, 1, 44, 14)  # ragged
+    want = tblend.blend_tiles_plain(rows, gid, starts, 3, 1, 44, 14)
+    for img in (got, [t.numpy() for t in want]):
+        assert not img[0][:, 16:].any() and not img[1][:, 16:].any()
+        assert np.all(img[2][:, 16:] == 1.0)
+        assert img[0][6, 8, 0] > 0.8 and img[2][6, 8] < 0.2
+    for a, b in zip(got[:3], want):
+        np.testing.assert_allclose(a, b.numpy(), rtol=0, atol=1e-6)
+
+
+def _np_expand_blocks(rect, depth, offs, grid_x, gauss, threads):
+    """csrc/expand.cu in numpy: a block per ``gauss`` Gaussians stages
+    their offsets; thread t walks slots offs[g0] + t, + threads, ... below
+    offs[g0 + gauss], each owner found by upper_bound - 1 in the staged
+    offsets from the thread's previous owner. Every slot is written once."""
+    n, total = len(rect), int(offs[-1])
+    keys = np.zeros(total, np.int64)
+    gids = np.zeros(total, np.int32)
+    writes = np.zeros(total, np.int64)
+    dbits = depth.astype(np.float32).view(np.uint32).astype(np.int64)
+    for g0 in range(0, n, gauss):
+        m = min(gauss, n - g0)
+        so = offs[g0:g0 + m + 1]
+        for tid in range(threads):
+            a = 0
+            for s in range(int(so[0]) + tid, int(so[m]), threads):
+                b = m
+                while b - a > 1:
+                    mid = (a + b) >> 1
+                    if so[mid] <= s:
+                        a = mid
+                    else:
+                        b = mid
+                rx0, ry0, wd, cnt = (int(v) for v in rect[g0 + a])
+                assert cnt > 0 and so[a] <= s < so[a] + cnt
+                d = s - int(so[a])
+                tile = (ry0 + d // wd) * grid_x + rx0 + d % wd
+                keys[s] = (tile << 32) | dbits[g0 + a]
+                gids[s] = g0 + a
+                writes[s] += 1
+    assert np.all(writes == 1)
+    return keys, gids
+
+
+def _expand_case(kind):
+    rng = np.random.default_rng(len(kind))
+    n = {"zero runs": 23, "last empty": 37, "none": 12, "kernel sizes": 600,
+         "one large": 9}[kind]
+    wd = rng.integers(1, 5, n)
+    ht = rng.integers(0, 4, n)
+    if kind == "zero runs":
+        ht[2:10] = 0                     # across the boundaries at 4 and 8
+    if kind in ("last empty", "kernel sizes"):
+        ht[-3:] = 0
+    if kind == "kernel sizes":
+        ht[250:263] = 0                  # across the boundary at 256
+    if kind == "none":
+        ht[:] = 0
+    if kind == "one large":
+        wd[4], ht[4] = 8, 5
+    rect = np.stack([rng.integers(0, 6, n), rng.integers(0, 6, n), wd,
+                     wd * ht], 1).astype(np.int32)
+    depth = rng.uniform(0.3, 5.0, n).astype(np.float32)
+    offs = np.concatenate([[0], np.cumsum(rect[:, 3])]).astype(np.int64)
+    return rect, depth, offs
+
+
+@pytest.mark.parametrize("kind,gauss,threads", [
+    ("zero runs", 4, 5), ("last empty", 8, 5), ("none", 4, 3),
+    ("kernel sizes", 256, 256), ("one large", 4, 3)])
+def test_expand_kernel_slot_search(kind, gauss, threads):
+    """The expansion kernel's slot-to-owner search, emulated in numpy, is
+    bitwise equal to expand_pairs_plain: runs of zero-count Gaussians
+    across a block boundary, a last Gaussian with cnt 0, total 0, a block
+    size that divides neither N nor a block's slot count, and one Gaussian
+    whose slots outnumber a block's threads many times."""
+    rect, depth, offs = _expand_case(kind)
+    total, grid_x = int(offs[-1]), 10
+    assert (total == 0) == (kind == "none")
+    assert kind == "none" or total % threads and len(rect) % gauss
+    keys, gids = _np_expand_blocks(rect, depth, offs, grid_x, gauss, threads)
+    want_k, want_g = texpand.expand_pairs_plain(
+        torch.as_tensor(rect), torch.as_tensor(depth), torch.as_tensor(offs),
+        total, grid_x)
+    np.testing.assert_array_equal(keys, want_k.numpy())
+    np.testing.assert_array_equal(gids, want_g.numpy())
