@@ -1,0 +1,7 @@
+from .mv_rgb_dataset import (MvRgbDatasetActorsHQ, MvRgbDatasetAvatarReX,
+                             MvRgbDatasetBase, MvRgbDatasetTHuman4,
+                             get_dataset_class)
+
+__all__ = ["MvRgbDatasetBase", "MvRgbDatasetAvatarReX",
+           "MvRgbDatasetTHuman4", "MvRgbDatasetActorsHQ",
+           "get_dataset_class"]

@@ -13,8 +13,11 @@ noise from the caller (``draws``), so a test can hand both packages the
 same numbers. The mean-hand freeze of the ``test.fix_hand`` configs
 (``generate_mean_hands`` once, then ``hand_vals`` on every render) and the
 pose-map regeneration for novel poses (``get_pose_map``) are here too.
-Random styles are refused: the shipped configs turn them off
-(``configs/avatarrex_zzr/avatar.yaml:78``).
+The model keys read are the JAX package's: ``with_viewdirs``,
+``weight_viewdirs`` (a factor on both view features), ``texel_block`` and
+``channel_max``. Random styles and ``remat`` are refused: the shipped
+configs turn random styles off (``configs/avatarrex_zzr/avatar.yaml:78``)
+and set no ``remat``.
 """
 
 from __future__ import annotations
@@ -33,8 +36,8 @@ from animatablegaussians_torch.ops import quat as quat_ops
 from animatablegaussians_torch.ops.rasterize import render as splat
 from animatablegaussians_torch.utils.geometry import normalize_vert_bbox
 
-# consecutive texels per block of the packed point set (the JAX package's
-# default ``texel_block``)
+# consecutive texels per block of the packed point set when the config
+# sets no ``texel_block`` (the JAX package's default)
 TEXEL_BLOCK = 8
 
 
@@ -56,14 +59,18 @@ class AvatarNet(nn.Module):
         if opt.get("random_style", False):
             raise NotImplementedError("random_style is not ported (the "
                                       "shipped configs set it false)")
+        if opt.get("remat", False):
+            raise NotImplementedError("remat is not ported (the shipped "
+                                      "configs do not set it)")
         self.with_viewdirs = opt.get("with_viewdirs", True)
+        self.weight_viewdirs = float(opt.get("weight_viewdirs", 1.0))
         self.map_h, self.map_w = cano_smpl_map.shape[:2]
         self.inp_size = self.map_h // 2
         self.out_size = S = self.map_h
-        self.texel_block = tb = TEXEL_BLOCK
+        self.texel_block = tb = int(opt.get("texel_block", TEXEL_BLOCK))
         if not (self.map_w == 2 * S and S % tb == 0):
             raise ValueError(f"AvatarNet needs an (H, 2H) map with H a "
-                             f"multiple of {tb}")
+                             f"multiple of texel_block {tb}")
         dev = torch.device(device)
 
         # block-packed masked texels (JAX avatar.py:69-100)
@@ -82,16 +89,8 @@ class AvatarNet(nn.Module):
         lbs_pad = np.zeros((self.n_points, lbs_np.shape[1]), np.float32)
         lbs_pad[valid_np] = lbs_np
 
-        # half-res viewdir scatter layout (JAX avatar.py:115-130): even rows'
-        # blocks contribute their even-x texels as one tb/2-run each
-        hb = tb // 2
         blk_t0 = block_idx * tb
         blk_iy, blk_ix0 = blk_t0 // self.map_w, blk_t0 % self.map_w
-        even = blk_iy % 2 == 0
-        vd_src = (np.nonzero(even)[0][:, None] * tb
-                  + np.arange(0, tb, 2)[None]).reshape(-1)
-        vd_tgt = ((blk_iy[even] // 2) * (self.map_w // 2 // hb)
-                  + blk_ix0[even] // tb)
         # direct CNN-output select layout (JAX avatar.py:140-152)
         front = blk_ix0 < S
         dual_row = blk_iy * (S // tb) + np.where(front, blk_ix0,
@@ -106,8 +105,19 @@ class AvatarNet(nn.Module):
         buf("lbs", lbs_pad, torch.float32)
         buf("valid", valid_np, torch.bool)
         buf("valid_f", valid_np.astype(np.float32), torch.float32)
-        buf("vd_half_src", vd_src, torch.int64)
-        buf("vd_half_tgt", vd_tgt, torch.int64)
+        if tb % 2 == 0:
+            # half-res viewdir scatter layout (JAX avatar.py:115-130): even
+            # rows' blocks contribute their even-x texels as one tb/2-run
+            hb = tb // 2
+            even = blk_iy % 2 == 0
+            buf("vd_half_src", (np.nonzero(even)[0][:, None] * tb
+                                + np.arange(0, tb, 2)[None]).reshape(-1),
+                torch.int64)
+            buf("vd_half_tgt", ((blk_iy[even] // 2) * (self.map_w // 2 // hb)
+                                + blk_ix0[even] // tb), torch.int64)
+        else:
+            # an odd block has no even-x run: scatter at full res
+            buf("block_idx", block_idx, torch.int64)
         buf("dual_row", dual_row, torch.int64)
         buf("dual_front", front[:, None, None], torch.bool)
         if self.with_viewdirs:
@@ -168,14 +178,21 @@ class AvatarNet(nn.Module):
     def _scatter_masked_half(self, vals, channels: int = 0):
         """(N, [C]) point values -> (H/2, W/2, [C]) half-res map, zeros
         elsewhere: the even-(row, col) texels of the full-res scatter."""
-        hb = self.texel_block // 2
-        hh, hw = self.map_h // 2, self.map_w // 2
+        tb = self.texel_block
         c = max(channels, 1)
-        v = vals.reshape(self.n_points, c)[self.vd_half_src]
-        out = torch.zeros((hh * hw // hb, hb, c), dtype=vals.dtype,
-                          device=vals.device)
-        out[self.vd_half_tgt] = v.reshape(-1, hb, c)
-        out = out.reshape(hh, hw, c)
+        if tb % 2:
+            out = torch.zeros((self.map_h * self.map_w // tb, tb, c),
+                              dtype=vals.dtype, device=vals.device)
+            out[self.block_idx] = vals.reshape(-1, tb, c)
+            out = out.reshape(self.map_h, self.map_w, c)[::2, ::2]
+        else:
+            hb = tb // 2
+            hh, hw = self.map_h // 2, self.map_w // 2
+            v = vals.reshape(self.n_points, c)[self.vd_half_src]
+            out = torch.zeros((hh * hw // hb, hb, c), dtype=vals.dtype,
+                              device=vals.device)
+            out[self.vd_half_tgt] = v.reshape(-1, hb, c)
+            out = out.reshape(hh, hw, c)
         return out[..., 0] if channels == 0 else out
 
     def _point_mats(self, jnt_mats):
@@ -207,11 +224,12 @@ class AvatarNet(nn.Module):
 
     def _encode_viewdirs(self, vmaps):
         """(B, H/2, W/2) half-res dot maps -> two (B, h, w, 128) NHWC
-        features (front/back)."""
+        features (front/back), each times ``weight_viewdirs``."""
         half = vmaps.shape[2] // 2
 
         def encode(v):
-            return self.viewdir_net(v[:, None]).permute(0, 2, 3, 1)
+            return self.weight_viewdirs * self.viewdir_net(
+                v[:, None]).permute(0, 2, 3, 1)
 
         return encode(vmaps[:, :, :half]), encode(vmaps[:, :, half:])
 

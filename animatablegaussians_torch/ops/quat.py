@@ -1,7 +1,8 @@
 """Quaternion utilities (w, x, y, z convention), batched over leading axes.
 
-Port of ``animatablegaussians_tpu/ops/quat.py``: the same formulas in the
-same order, so the two agree to float32 rounding.
+Port of ``animatablegaussians_tpu/ops/quat.py`` (the quaternion helpers and
+``axis_angle_to_mat``): the same formulas in the same order, so the two
+agree to float32 rounding.
 """
 
 from __future__ import annotations
@@ -60,3 +61,19 @@ def mat_to_quat(m: torch.Tensor) -> torch.Tensor:
         best.shape + (1, 4))).squeeze(-2)
     q = torch.where(q[..., 0:1] < 0, -q, q)
     return normalize(q)
+
+
+def axis_angle_to_mat(aa: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """Axis-angle (..., 3) -> rotation matrix (..., 3, 3) (Rodrigues)."""
+    angle = torch.linalg.norm(aa, dim=-1, keepdim=True)
+    axis = aa / torch.clamp(angle, min=eps)
+    x, y, z = axis[..., 0], axis[..., 1], axis[..., 2]
+    s = torch.sin(angle[..., 0])
+    c = torch.cos(angle[..., 0])
+    C = 1.0 - c
+    m = torch.stack([
+        x * x * C + c, x * y * C - z * s, x * z * C + y * s,
+        y * x * C + z * s, y * y * C + c, y * z * C - x * s,
+        z * x * C - y * s, z * y * C + x * s, z * z * C + c,
+    ], dim=-1)
+    return m.reshape(aa.shape[:-1] + (3, 3))

@@ -1,0 +1,123 @@
+"""A synthetic multi-view capture on disk, in the AvatarReX layout that
+``data.MvRgbDatasetAvatarReX`` reads, for driving the training entry point
+(``main_avatar_torch.py``) without a real capture:
+
+  * ``calibration_full.json``: R = I, T = (0.05 i, 0, 2), fx = fy =
+    1.25 img_w, the principal point at the image centre;
+  * per camera, ``%08d.jpg`` frames of uniform noise and
+    ``mask/pha/%08d.jpg`` mattes (a box), written by ``data.image_io``'s
+    codec;
+  * ``smpl_params.npz``: 0.05 N(0, 1) global orients, translations and
+    body poses, zero hands, jaw and expression;
+  * an SMPL-X npz with random model tensors (``write_smplx``);
+  * ``smpl_pos_map/``: the canonical position and normal EXRs and
+    ``init_pts_lbs.npy`` from ``utils.synthetic.make_cano_map``, and one
+    pose-map EXR per frame.
+
+A numpy copy of ``tests/test_driver.py::full_capture`` and
+``tests/test_datasets.py::write_synthetic_smplx``, parametrised by size:
+the defaults are those tests' sizes (96x96 images, map_h 64, 120 SMPL-X
+vertices); ``FULL`` is the full-width workload of ``tools/render_fixture``
+(1500x2048 images, map_h 1024, i.e. 531,520 Gaussians) with SMPL-X's real
+shapes (10,475 vertices, 55 joints, 400 shape and expression directions).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+
+import numpy as np
+
+from animatablegaussians_torch.data import image_io
+from animatablegaussians_torch.utils import exr, synthetic
+
+N_JOINTS = 55
+FULL = dict(img_w=1500, img_h=2048, map_h=1024, n_verts=10475,
+            n_faces=20908)
+
+
+def write_smplx(path: str, n_verts: int = 120, n_faces: int = 50,
+                seed: int = 0) -> None:
+    """An SMPL-X npz with random tensors of the archive's layout: 55
+    joints on a shallow random tree, 400 shape and expression directions,
+    posedirs (V, 3, 486), normalized regressor and skinning weights."""
+    J, V = N_JOINTS, n_verts
+    rng = np.random.default_rng(seed)
+    parents = np.zeros(J, np.int64)
+    parents[1:] = rng.integers(0, 3, J - 1)
+    for j in range(1, J):
+        parents[j] = min(parents[j], j - 1)
+    np.savez(
+        path,
+        v_template=rng.standard_normal((V, 3)).astype(np.float32),
+        shapedirs=0.03 * rng.standard_normal((V, 3, 400)).astype(np.float32),
+        posedirs=0.01 * rng.standard_normal(
+            (V, 3, (J - 1) * 9)).astype(np.float32),
+        J_regressor=(lambda w: w / w.sum(1, keepdims=True))(
+            rng.random((J, V)).astype(np.float32)),
+        weights=(lambda w: w / w.sum(1, keepdims=True))(
+            rng.random((V, J)).astype(np.float32)),
+        hands_componentsl=rng.standard_normal((6, 45)).astype(np.float32),
+        hands_componentsr=rng.standard_normal((6, 45)).astype(np.float32),
+        hands_meanl=np.zeros(45, np.float32),
+        hands_meanr=np.zeros(45, np.float32),
+        kintree_table=np.stack([parents, np.arange(J)]),
+        f=rng.integers(0, V, (n_faces, 3)).astype(np.int64),
+    )
+
+
+def write_capture(data_dir: str, n_frames: int = 4,
+                  cams=("cam00", "cam01"), img_w: int = 96, img_h: int = 96,
+                  map_h: int = 64, n_verts: int = 120, n_faces: int = 50,
+                  seed: int = 0) -> str:
+    """Write the capture under ``data_dir``; returns the SMPL-X npz's
+    path."""
+    os.makedirs(data_dir, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    f = 1.25 * img_w
+    calib = {cn: dict(R=np.eye(3).reshape(-1).tolist(),
+                      T=[0.05 * i, 0.0, 2.0],
+                      K=[f, 0, img_w / 2, 0, f, img_h / 2, 0, 0, 1],
+                      imgSize=[img_w, img_h])
+             for i, cn in enumerate(cams)}
+    with open(os.path.join(data_dir, "calibration_full.json"), "w") as fp:
+        json.dump(calib, fp)
+
+    mask = np.zeros((img_h, img_w), np.uint8)
+    mask[img_h * 20 // 96:img_h * 80 // 96,
+         img_w * 30 // 96:img_w * 70 // 96] = 255
+    for cn in cams:
+        os.makedirs(os.path.join(data_dir, cn, "mask", "pha"),
+                    exist_ok=True)
+        for fr in range(n_frames):
+            img = (rng.random((img_h, img_w, 3)) * 255).astype(np.uint8)
+            image_io.write_jpeg(os.path.join(data_dir, cn, "%08d.jpg" % fr),
+                                img)
+            image_io.write_jpeg(os.path.join(data_dir, cn, "mask", "pha",
+                                             "%08d.jpg" % fr), mask)
+
+    def pose(dim):
+        return 0.05 * rng.standard_normal((n_frames, dim)).astype(np.float32)
+
+    np.savez(os.path.join(data_dir, "smpl_params.npz"),
+             betas=np.zeros((1, 10), np.float32),
+             global_orient=pose(3), transl=pose(3), body_pose=pose(63),
+             jaw_pose=np.zeros((n_frames, 3), np.float32),
+             expression=np.zeros((n_frames, 10), np.float32),
+             left_hand_pose=np.zeros((n_frames, 45), np.float32),
+             right_hand_pose=np.zeros((n_frames, 45), np.float32))
+    smpl_path = os.path.join(data_dir, "SMPLX_SYNTH.npz")
+    write_smplx(smpl_path, n_verts=n_verts, n_faces=n_faces)
+
+    pm_dir = os.path.join(data_dir, "smpl_pos_map")
+    os.makedirs(pm_dir, exist_ok=True)
+    pos, nml, lbs = synthetic.make_cano_map(map_h=map_h)
+    exr.write_exr(os.path.join(pm_dir, "cano_smpl_pos_map.exr"), pos)
+    exr.write_exr(os.path.join(pm_dir, "cano_smpl_nml_map.exr"), nml)
+    np.save(os.path.join(pm_dir, "init_pts_lbs.npy"), lbs)
+    half_pose = synthetic.pose_map_from_cano(pos)        # (S/2, S/2, 6)
+    flat = np.concatenate([half_pose[..., :3], half_pose[..., 3:]], axis=1)
+    for fr in range(n_frames):
+        exr.write_exr(os.path.join(pm_dir, "%08d.exr" % fr), flat)
+    return smpl_path

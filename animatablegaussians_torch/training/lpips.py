@@ -16,12 +16,16 @@ Weights come as a state dict (``convs.<i>.weight`` (out, in, 3, 3),
 ``convs.<i>.bias``, ``lins.<i>`` (C,)) from ``load_torch_weights`` (the
 torchvision ``vgg16`` features and LPIPS lin checkpoint files),
 ``init_random`` (architecture-correct random numbers from numpy, not a
-valid metric) or ``utils.convert.lpips_from_jax``.
+valid metric) or ``utils.convert.lpips_from_jax``; ``resolve_lpips_params``
+picks them for a training run from its config, as the JAX package's
+(lpips.py:165-215) does.
 """
 
 from __future__ import annotations
 
 import math
+import os
+from typing import Optional
 
 import numpy as np
 import torch
@@ -99,6 +103,48 @@ def load_torch_weights(vgg_path: str, lin_path: str) -> dict:
                                         f"lins.{i}.model.1.weight"),
                                f"lin{i} weight").reshape(c)
     return sd
+
+
+def resolve_lpips_params(opt: dict) -> Optional[dict]:
+    """The LPIPS weights of a training run, in this order:
+
+      1. ``train.lpips_weights: {vgg: <vgg16.pth>, lin: <lin.pth>}``;
+      2. ``train.lpips_weights: random``: ``init_random(0)``, an explicit
+         opt-out (not a valid perceptual metric);
+      3. ``$AGT_LPIPS_WEIGHTS`` or ``<PROJ_DIR>/lpips_weights/`` holding
+         ``vgg16.pth`` and ``lin.pth`` (or ``vgg.pth`` for the lin heads).
+
+    Returns None when none exists and ``loss_weight.lpips`` is 0; raises
+    ``RuntimeError`` when it is > 0, since training without the perceptual
+    term trains a different model."""
+    from animatablegaussians_torch import config as agt_config
+
+    train = opt.get("train", {})
+    spec = train.get("lpips_weights")
+    w_lp = float(train.get("loss_weight", {}).get("lpips", 0.0))
+    if isinstance(spec, dict):
+        return load_torch_weights(spec["vgg"], spec["lin"])
+    if spec == "random":
+        return init_random(0)
+    candidates = [os.environ.get("AGT_LPIPS_WEIGHTS"),
+                  os.path.join(agt_config.PROJ_DIR, "lpips_weights")]
+    for d in filter(None, candidates):
+        vgg = os.path.join(d, "vgg16.pth")
+        if not os.path.exists(vgg):
+            continue
+        for lin_name in ("lin.pth", "vgg.pth"):
+            lin = os.path.join(d, lin_name)
+            if os.path.exists(lin):
+                return load_torch_weights(vgg, lin)
+    if w_lp > 0:
+        raise RuntimeError(
+            f"loss_weight.lpips = {w_lp} but no LPIPS weights were found. "
+            "Provide train.lpips_weights: {vgg: ..., lin: ...} in the "
+            "config, set $AGT_LPIPS_WEIGHTS to a directory containing "
+            "vgg16.pth and lin.pth, place them under "
+            "<PROJ_DIR>/lpips_weights/, or set train.lpips_weights: random "
+            "to opt out explicitly (not a valid metric).")
+    return None
 
 
 class LPIPS(nn.Module):

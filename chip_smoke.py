@@ -80,7 +80,25 @@ itself. Phases, each printing a line, any failure exiting non-zero:
                 its own batch, against the host loop of the same steps,
                 beside two planted faults (a scan that never updates, one
                 that trains every step on the first batch) that the limit
-                must catch.
+                must catch;
+ 15. driver   - the training entry point as a user runs it,
+                ``main_avatar_torch.main(["-c", cfg, "-m", "train"])``, on
+                a full-width synthetic capture that tools/capture_fixture.py
+                writes under build/ (2 cameras x 3 frames of 1500x2048
+                JPEGs, map_h 1024 = 531,520 Gaussians, SMPL-X's real
+                shapes) with the bench's settings at channel_max 512: 2
+                pretrain iterations, one epoch of 6 steps with a mini-test
+                and a batch checkpoint at step 4, epoch_latest; launch
+                counters reset just before (the backward blend once a step,
+                the FIR kernel per ``fir_count`` of a pretrain step, a
+                train step and the mini-test's render); finite losses,
+                moved parameters, a second trainer resumed from
+                epoch_latest equal to the first bit for bit, a second CLI
+                run resuming to step 12 with one batch_* directory left;
+                the JPEG codec, dataset init (and its SMPL-X forward)
+                seconds, the loader's mean wait, the median ms of a train
+                iteration with host I/O beside phase 9's bare step, peak
+                memory and the first item's n_pairs.
 
 Each kernel's record carries its bound: the least time the card could take
 for the same work, the larger of the bytes it must move over the memory
@@ -99,6 +117,7 @@ import contextlib
 import functools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -179,6 +198,9 @@ RTOL_FIR = 1e-5
 ATOL_FIR_IMG = 1e-4
 TRAIN_B = 2
 B2_WARMUP, B2_TIMED, SCAN_STEPS = 2, 3, 3
+# phase 15: frames of the capture (two cameras each), pretrain iterations
+# and the heads' width
+DRIVER_FRAMES, DRIVER_PRETRAIN, DRIVER_CHANNEL_MAX = 3, 2, 512
 # scan against host loop on the card, per step's loss terms: the same steps
 # on the same batches and draws, but the blend's atomics and the events of
 # RTOL_GRAD make every run's update differ a little. On the H100 two host
@@ -460,15 +482,15 @@ def splat_inputs(net, items):
             g.get_opacity.reshape(-1), colors)
 
 
-def fir_count(net) -> tuple:
-    """(FIRs a forward of the three heads runs, of them on a tensor that
+def fir_count(net, heads=("position_net", "other_net", "color_net")):
+    """(FIRs a forward of the ``heads`` runs, of them on a tensor that
     carries a gradient in a train step), from the heads' structure: per
     head conv_in's pre-blur and each FromRGB's downsample (both on the pose
     map, so no gradient), each ConvBlock's pre-blur, and per decoder branch
     each up-conv's post-blur and each ToRGB's wavelet upsample but the
     first's. The FIR kernel launching this often leaves none to F.conv2d."""
     n_fwd = n_grad = 0
-    for head in (net.position_net, net.other_net, net.color_net):
+    for head in (getattr(net, h) for h in heads):
         grad = len(head.cond_convs) + 2 * (len(head.convs1) // 2
                                            + len(head.to_rgbs1) - 1)
         n_fwd += 1 + len(head.from_rgbs) + grad
@@ -697,6 +719,166 @@ def fir_phase(calls, card: str, dev) -> dict:
                          "(_vhfir_kernel; pl.pallas_call at :231)",
                 bound_by="bytes", max_abs_err=worst, **tot,
                 **{f"bwd_{k}": v for k, v in tot_bwd.items()})
+
+
+def driver_phase(card: str, bare_step_ms: float, records: list) -> None:
+    """Phase 15: ``main_avatar_torch`` trains a full-width capture on disk
+    (see the module docstring); adds each kernel's launches in that run to
+    its record as ``driver_launches``."""
+    import shutil
+    import tempfile
+
+    import yaml
+
+    import main_avatar_torch
+    from animatablegaussians_torch.data import image_io
+    from animatablegaussians_torch.ops import fir
+    from animatablegaussians_torch.ops.rasterize.blend import (
+        blend_backward, blend_tiles)
+    from animatablegaussians_torch.ops.rasterize.expand import expand_pairs
+    from animatablegaussians_torch.tools import capture_fixture as cf
+    from animatablegaussians_torch.training import checkpoint as ck
+    from animatablegaussians_torch.tools.render_fixture import RENDER_KEYS
+    from animatablegaussians_torch.training.driver import AvatarTrainer
+    from animatablegaussians_torch.utils.cuda_build import BUILD_ROOT
+
+    BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="capture-", dir=BUILD_ROOT)
+    try:
+        t0 = time.perf_counter()
+        data_dir = os.path.join(tmp, "capture")
+        smpl_path = cf.write_capture(data_dir, n_frames=DRIVER_FRAMES,
+                                     **cf.FULL)
+        phase("driver", f"capture written in {time.perf_counter() - t0:.1f}"
+              f" s with the {image_io.CODEC} codec: {DRIVER_FRAMES} frames "
+              f"x 2 cameras of {cf.FULL['img_w']}x{cf.FULL['img_h']}, "
+              f"map_h {cf.FULL['map_h']}, SMPL-X {cf.FULL['n_verts']} "
+              "vertices")
+        ckpt_dir = os.path.join(tmp, "ckpt")
+        opt = dict(
+            train=dict(
+                dataset="MvRgbDatasetAvatarReX",
+                data=dict(data_dir=data_dir, frame_range=[0, DRIVER_FRAMES],
+                          used_cam_ids=[0, 1], load_smpl_pos_map=True,
+                          smpl_model_path=smpl_path),
+                net_ckpt_dir=ckpt_dir,
+                ckpt_interval=dict(epoch=1, batch=4), eval_interval=4,
+                eval_training_ids=[0, 0], lr_init=5e-4,
+                loss_weight=dict(l1=1.0, lpips=0.1, offset=0.005),
+                lpips_weights="random", finetune_color=False, batch_size=1,
+                num_workers=8, random_bg_color=True),
+            model=dict(with_viewdirs=True, channel_max=DRIVER_CHANNEL_MAX))
+        cfg = os.path.join(tmp, "avatar.yaml")
+        with open(cfg, "w") as fp:
+            yaml.safe_dump(opt, fp)
+        argv = ["-c", cfg, "-m", "train"]
+
+        AvatarTrainer.PRETRAIN_ITERS = DRIVER_PRETRAIN
+        counted = (expand_pairs, blend_tiles, blend_backward,
+                   fir.upfirdn2d_fir)
+        for fn in counted:
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer = main_avatar_torch.main(argv, num_epochs=1)
+        wall = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        launches = {fn.__name__: fn.launches for fn in counted}
+        net = trainer.avatar_net
+        n_steps = trainer.iter_idx
+        n_eval = n_steps // opt["train"]["eval_interval"]
+        pre_fwd, pre_grad = fir_count(net, ("position_net", "other_net"))
+        n_fir, n_fir_grad = fir_count(net)
+        want = {"expand_pairs": n_steps + n_eval,
+                "blend_tiles": n_steps + n_eval, "blend_backward": n_steps,
+                "upfirdn2d_fir": DRIVER_PRETRAIN * (pre_fwd + pre_grad)
+                + n_steps * (n_fir + n_fir_grad) + n_eval * n_fir}
+        phase("driver", f"main_avatar_torch {' '.join(argv[2:])}: "
+              f"{DRIVER_PRETRAIN} pretrain iterations, {n_steps} steps, "
+              f"{n_eval} mini-test in {wall:.1f} s; kernel launches "
+              f"{launches} (want {want}: FIR {pre_fwd} + {pre_grad} a "
+              f"pretrain step, {n_fir} + {n_fir_grad} a train step, "
+              f"{n_fir} a mini-test)")
+        if n_steps != 2 * DRIVER_FRAMES or launches != want:
+            raise AssertionError(f"driver: {n_steps} steps, launches "
+                                 f"{launches}, want {want}")
+        for r in records:
+            r["driver_launches"] = launches[r["name"]]
+        for i, t in enumerate(trainer.terms):
+            phase("driver", f"step {i + 1}: " + ", ".join(
+                f"{k} {v:.6f}" for k, v in t.items()))
+            if not all(math.isfinite(v) for v in t.values()):
+                raise AssertionError(f"driver step {i + 1}: non-finite {t}")
+        pre = torch.load(os.path.join(ckpt_dir, "pretrained", "net.pt"),
+                         map_location="cpu", weights_only=True)["avatar_net"]
+        moved = {g: max(float((p.detach().cpu() - pre[n]).abs().max())
+                        for n, p in named if p.numel()
+                        and not n.startswith("cano_gaussian.features"))
+                 for g, named in param_groups(net).items()}
+        phase("driver", "largest parameter change per group over the epoch: "
+              + ", ".join(f"{g} {m:.2e}" for g, m in moved.items()))
+        if not min(moved.values()) > 0:
+            raise AssertionError(f"driver: a parameter group did not move: "
+                                 f"{moved}")
+        ds = trainer.dataset
+        it_med = statistics.median(trainer.iter_ms)
+        wait = 1e3 * statistics.mean(trainer.loader_waits)
+        phase("driver", f"dataset init {trainer.dataset_init_s:.3f} s, of "
+              f"which the SMPL-X forward {ds.smplx_s:.3f} s ({len(ds)} "
+              f"items); loader wait mean {wait:.3f} ms a step (per step "
+              f"{['%.2f' % (1e3 * w) for w in trainer.loader_waits]}); train "
+              f"iteration median {it_med:.2f} ms with host I/O (per "
+              f"iteration {['%.2f' % t for t in trainer.iter_ms]}) against "
+              f"the bare step's {bare_step_ms:.2f} ms (phase 9); peak "
+              f"memory {peak_gb:.2f} GiB ({card})")
+        eval_img = os.path.join(ckpt_dir, "eval", "training_4.jpg")
+        if not os.path.exists(eval_img):
+            raise AssertionError(f"driver: no mini-test image {eval_img}")
+        with torch.no_grad():
+            item = ds.getitem(0)
+            n_pairs = net.render({k: torch.as_tensor(item[k],
+                                                     device=trainer.device)
+                                  for k in RENDER_KEYS},
+                                 img_w=trainer.img_w,
+                                 img_h=trainer.img_h)["n_pairs"]
+        phase("driver", f"first item's n_pairs after the epoch {n_pairs}; "
+              f"mini-test {eval_img} ({os.path.getsize(eval_img)} bytes)")
+
+        # a second trainer resumed from epoch_latest equals the first
+        d, with_optm = ck.resolve_resume_dir(ckpt_dir)
+        second = AvatarTrainer(opt)
+        second.load_ckpt(d, load_optm=with_optm)
+        same = (second.iter_idx == trainer.iter_idx == second.state.iter_idx
+                and d.endswith("epoch_latest") and with_optm)
+        sa, sb = trainer.state, second.state
+        for k, v in sa.net.state_dict().items():
+            same &= torch.equal(v, sb.net.state_dict()[k])
+        oa, ob = sa.optimizer.state_dict(), sb.optimizer.state_dict()
+        same &= oa["param_groups"] == ob["param_groups"]
+        for i, st in oa["state"].items():
+            same &= all(torch.equal(v, ob["state"][i][k])
+                        for k, v in st.items())
+        same &= sa.scheduler.state_dict() == sb.scheduler.state_dict()
+        phase("driver", f"resumed from {os.path.basename(d)}: iter_idx "
+              f"{second.iter_idx}, weights, Adam and schedule bit for bit "
+              f"equal: {same}")
+        if not same:
+            raise AssertionError("driver: the resumed state differs")
+        del trainer, second, net, sa, sb
+
+        # the CLI again: it resumes from epoch_latest and trains on
+        trainer = main_avatar_torch.main(argv, num_epochs=1)
+        batches = sorted(x for x in os.listdir(ckpt_dir)
+                         if x.startswith("batch_"))
+        phase("driver", f"second CLI run resumed to step {trainer.iter_idx};"
+              f" checkpoints left: {batches}")
+        if trainer.iter_idx != 4 * DRIVER_FRAMES or batches != [
+                f"batch_{4 * DRIVER_FRAMES}"]:
+            raise AssertionError(f"driver resume: step {trainer.iter_idx}, "
+                                 f"{batches}")
+        del trainer
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main() -> int:
@@ -1342,6 +1524,11 @@ def main() -> int:
             and gaps["first batch"] > SCAN_RTOL_LOSS):
         raise AssertionError(f"scan against the host loop: {gaps}")
     del start, batches, scan_batch
+
+    # -- 15. the training entry point on a full-width capture --------------
+    del net, train_items, items, titems, batch, lpips, step_b, tkw, kw
+    torch.cuda.empty_cache()
+    driver_phase(card, step_med, records)
 
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,9 @@
 the CPU: AvatarNet.render and render_sequence with the JAX weights carried
 across by params_from_jax, the pieces of the slice one by one, the mean-hand
 render and the pose-map regeneration, the import_avatar_params round trip,
-and a subprocess check that the port renders without importing jax."""
+the model keys ``weight_viewdirs`` and ``texel_block`` (and the refusal of
+``remat``), and a subprocess check that the port renders without importing
+jax."""
 
 import dataclasses
 import os
@@ -17,11 +19,13 @@ import torch
 
 from animatablegaussians_tpu.models import styleunet as jsu
 from animatablegaussians_tpu.models.avatar import AvatarNet as JAvatarNet
+from animatablegaussians_tpu.models.gaussian_model import GaussianParams
 from animatablegaussians_tpu.ops.rasterize import RasterizeConfig
 from animatablegaussians_tpu.training.checkpoint import import_avatar_params
 from animatablegaussians_tpu.utils import synthetic as jsyn
 from animatablegaussians_torch.models.avatar import AvatarNet as TAvatarNet
-from animatablegaussians_torch.tools.render_fixture import hand_items
+from animatablegaussians_torch.tools.render_fixture import (
+    hand_items, zero_head_outputs)
 from animatablegaussians_torch.utils.convert import params_from_jax
 
 torch.backends.cudnn.allow_tf32 = False
@@ -45,18 +49,45 @@ def _params_np(params):
     return jax.tree_util.tree_map(np.asarray, p)
 
 
-@pytest.fixture(scope="module")
-def pair():
-    pos, nml, lbs = jsyn.make_cano_map(map_h=MAP_H)
-    opt = {"with_viewdirs": True, "channel_max": 32}
+def _raster(k_max=1024):
     # caps that cover the scene: JAX must drop nothing (n_overflow == 0)
-    jnet = JAvatarNet(opt, pos, lbs, cano_nml_map=nml,
-                      raster_config=RasterizeConfig(
-                          backend="ref", k_max=1024, max_dup=64,
-                          max_active_tiles=0))
+    return RasterizeConfig(backend="ref", k_max=k_max, max_dup=64,
+                           max_active_tiles=0)
+
+
+def _nets(opt, pos, nml, lbs):
+    """The JAX AvatarNet, its params and the port's with them carried
+    across, for one model config."""
+    jnet = JAvatarNet(opt, pos, lbs, cano_nml_map=nml, raster_config=_raster())
     params = jnet.init(jax.random.PRNGKey(0))
     tnet = TAvatarNet(opt, pos, lbs, cano_nml_map=nml, device="cpu")
     tnet.load_state_dict(params_from_jax(_params_np(params)))
+    return jnet, params, tnet
+
+
+def _nets_from_port(opt, pos, nml, lbs, k_max=1024, zero_heads=False):
+    """As ``_nets``, but the port draws the weights (``zero_heads``: the
+    position and other heads' ToRGB weights zeroed, as in the full-width
+    fixture) and the JAX package's ``import_avatar_params``, the inverse of
+    ``params_from_jax``, carries them across: the JAX initializer is slow
+    on the CPU."""
+    tnet = TAvatarNet(opt, pos, lbs, cano_nml_map=nml, device="cpu")
+    if zero_heads:
+        zero_head_outputs(tnet)
+    jnet = JAvatarNet(opt, pos, lbs, cano_nml_map=nml,
+                      raster_config=_raster(k_max))
+    sd = {k: v.numpy() for k, v in tnet.state_dict().items()}
+    params = import_avatar_params(sd, jnet, {"cano_gaussian": GaussianParams(
+        **{f: jnp.asarray(sd[f"cano_gaussian.{f}"])
+           for f in tnet.cano_gaussian.FIELDS})})
+    return jnet, params, tnet
+
+
+@pytest.fixture(scope="module")
+def pair():
+    pos, nml, lbs = jsyn.make_cano_map(map_h=MAP_H)
+    jnet, params, tnet = _nets({"with_viewdirs": True, "channel_max": 32},
+                               pos, nml, lbs)
     items = jsyn.make_items(img_w=IMG, img_h=IMG, cano_pos_map=pos)
     keys = ("smpl_pos_map", "cano2live_jnt_mats", "extr", "intr")
     items = {k: items[k] for k in keys}
@@ -249,6 +280,91 @@ def test_state_dict_round_trips_through_import_avatar_params(pair):
     for (path, a), (_, b) in zip(flat_a, flat_b):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b),
                                       err_msg=str(path))
+
+
+def _render_pair(jnet, params, tnet, items, img):
+    bg = (0.3, 0.6, 0.9)
+    want = jax.jit(lambda p, it: jnet.render(
+        p, it, bg_color=bg, img_w=img, img_h=img))(params, _j(items))
+    assert int(want["n_overflow"]) == 0
+    got = tnet.render(_t(items), bg_color=bg, img_w=img, img_h=img)
+    assert got["n_pairs"] == int(want["n_pairs"]) > 0
+    return got, want
+
+
+def test_weight_viewdirs_matches_jax():
+    """``weight_viewdirs`` scales both view features. They reach the image
+    only at out_size 1024 (a 1024x2048 canonical map), so the map keeps
+    two rows of one half of the synthetic body, front and back (about two
+    thousand texels: the KNN and the splat stay small, no pixel reaches the
+    transmittance cutoff and no two Gaussians sit at mirrored equal
+    depths). The heads are as narrow as the 128-channel view features
+    allow, with the position and other heads zeroed as in the full-width
+    fixture (``_nets_from_port``)."""
+    pos, nml, lbs = jsyn.make_cano_map(map_h=1024)
+    mask = np.linalg.norm(pos, axis=-1) > 0
+    band = np.zeros_like(mask)
+    band[510:512, 512:1024] = band[510:512, 1536:] = True
+    lbs = lbs[band[mask]]
+    pos, nml = pos * band[..., None], nml * band[..., None]
+    opt = {"with_viewdirs": True, "channel_max": 128,
+           "weight_viewdirs": 0.5}
+    jnet, params, tnet = _nets_from_port(opt, pos, nml, lbs, k_max=8192,
+                                         zero_heads=True)
+    items = jsyn.make_items(img_w=IMG, img_h=IMG, cano_pos_map=pos)
+    items = {k: items[k] for k in ("smpl_pos_map", "cano2live_jnt_mats",
+                                   "extr", "intr")}
+    got, want = _render_pair(jnet, params, tnet, items, IMG)
+    for k in ("rgb_map", "mask_map", "depth_map"):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                   atol=ATOL, err_msg=k)
+    # colours to the CNN's float32 rounding, as test_render_matches_jax
+    np.testing.assert_allclose(got["cano_tex_map"].numpy(),
+                               np.asarray(want["cano_tex_map"]), atol=1e-5)
+    # the key is read: both features scale with it
+    with torch.no_grad():
+        vmap = tnet._viewdir_half_map(_t(items))[None]
+        half = tnet._encode_viewdirs(vmap)
+        tnet.weight_viewdirs = 1.0
+        full = tnet._encode_viewdirs(vmap)
+    for h, f in zip(half, full):
+        assert float(f.abs().max()) > 0
+        torch.testing.assert_close(2.0 * h, f, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("texel_block", [1, 4])
+def test_texel_block_matches_jax(pair, texel_block):
+    """The point set's block packing follows ``texel_block``: the same
+    points as JAX's, the same masked select and half-res scatter (the odd
+    block through the full-res scatter), and the same render."""
+    _, _, _, items = pair
+    pos, nml, lbs = jsyn.make_cano_map(map_h=MAP_H)
+    opt = {"with_viewdirs": True, "channel_max": 32,
+           "texel_block": texel_block}
+    jnet, params, tnet = _nets_from_port(opt, pos, nml, lbs)
+    assert tnet.n_points == jnet.n_points
+    assert tnet.n_points < TAvatarNet({"channel_max": 8}, pos, lbs,
+                                      cano_nml_map=nml, device="cpu").n_points
+    rng = np.random.default_rng(texel_block)
+    vals = rng.standard_normal((tnet.n_points, 3)).astype(np.float32)
+    np.testing.assert_array_equal(
+        tnet._scatter_masked_half(torch.as_tensor(vals), 3).numpy(),
+        np.asarray(jnet._scatter_masked_half(jnp.asarray(vals), 3)))
+    outs = [rng.standard_normal((1, MAP_H, MAP_H, c)).astype(np.float32)
+            for c in (6, 16)]
+    np.testing.assert_array_equal(
+        tnet._select_masked_dual([torch.as_tensor(o) for o in outs]).numpy(),
+        np.asarray(jnet._select_masked_dual([jnp.asarray(o) for o in outs])))
+    got, want = _render_pair(jnet, params, tnet, items, IMG)
+    for k in ("rgb_map", "mask_map", "depth_map"):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                   atol=ATOL, err_msg=k)
+
+
+def test_remat_is_refused():
+    pos, nml, lbs = jsyn.make_cano_map(map_h=MAP_H)
+    with pytest.raises(NotImplementedError, match="remat"):
+        TAvatarNet({"remat": True}, pos, lbs, cano_nml_map=nml, device="cpu")
 
 
 def test_port_renders_without_jax():
