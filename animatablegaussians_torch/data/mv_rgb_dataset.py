@@ -8,13 +8,19 @@ results are cached as numpy; ``getitem`` is then array indexing and image
 reads. Images stay BGR; masks binarize at 128 with a 5x5 boundary band;
 position maps are front|back side-by-side EXRs reshaped to (H, W, 6).
 
-Ported routes: training items, ``eval=True`` items (a fixed pose and view)
-and ``skip_images=True`` items (pose maps and cameras only, for the
-pretrain phase), in the ``3dgs`` mode. The testing route
-(``training=False``, with its default front camera and MANO items) and
-the PCA pose projection wait for the animation slice (ROADMAP.md §1); the
-``nerf`` mode belongs to the template stack (ROADMAP.md §1). Both raise
-``NotImplementedError``.
+Routes, in the ``3dgs`` mode: training items, ``eval=True`` items (a fixed
+pose and view), ``skip_images=True`` items (pose maps and cameras only, for
+the pretrain phase) and, with ``training=False``, testing items over the
+pose list (a caller's camera or the 512^2 default front camera, with the
+canonical and live MANO items). The ``nerf`` mode belongs to the template
+stack (ROADMAP.md §1) and raises ``NotImplementedError``.
+
+The PCA pose projection of the animation path (``compute_pca`` /
+``transform_pca``, ref: dataset_mv_rgb.py:287-321) is the exact PCA in
+float64, with sklearn's conventions (``mean_`` centring, explained variance
+S^2 / (n - 1)) but without sklearn: the eigendecomposition of the
+(poses x poses) Gram matrix of the centred front pose maps. It is cached at
+``smpl_pos_map/pca_%d.npz``.
 """
 
 from __future__ import annotations
@@ -31,11 +37,7 @@ import torch
 from animatablegaussians_torch import config as agt_config
 from animatablegaussians_torch.data import commons, image_io
 from animatablegaussians_torch.ops.quat import axis_angle_to_mat
-
-_TESTING = ("the testing route (training=False), the default front camera "
-            "and the PCA pose projection are not ported yet: ROADMAP.md §1, "
-            "the animation slice")
-
+from animatablegaussians_torch.utils import visualize as viz
 
 class MvRgbDatasetBase:
     """Items are (pose_idx, view_idx) pairs over frame_range x used_cam_ids
@@ -49,8 +51,6 @@ class MvRgbDatasetBase:
                  smpl_model_path: Optional[str] = None,
                  precompute_device: str = "cpu",
                  mano_dir: Optional[str] = None):
-        if not training:
-            raise NotImplementedError(_TESTING)
         if mode != "3dgs":
             raise NotImplementedError(
                 f"dataset mode {mode!r} is not ported (the nerf mode belongs "
@@ -77,11 +77,13 @@ class MvRgbDatasetBase:
         else:
             raise TypeError("Invalid frame_range")
 
-        self.used_cam_ids = (list(range(self.view_num))
-                             if used_cam_ids is None else list(used_cam_ids))
-        self.data_list = [(p, v) for p in self.pose_list
-                          for v in self.used_cam_ids]
-        self.filter_missing_files()
+        if training:
+            self.used_cam_ids = (list(range(self.view_num))
+                                 if used_cam_ids is None
+                                 else list(used_cam_ids))
+            self.data_list = [(p, v) for p in self.pose_list
+                              for v in self.used_cam_ids]
+            self.filter_missing_files()
 
         t0 = time.perf_counter()
         self._precompute_smpl(smpl_model_path, precompute_device)
@@ -93,6 +95,19 @@ class MvRgbDatasetBase:
         if self.mano is not None:
             self._cano_mano = commons.generate_two_manos(
                 self.mano, self.cano_smpl["vertices"])
+
+    def _attach_mano(self, item: dict, live_verts: np.ndarray):
+        """Canonical and live MANO items, on testing items
+        (ref: dataset_mv_rgb.py:231-236)."""
+        if self.mano is None:
+            return
+        lv, ln, rv, rn = self._cano_mano
+        item.update(left_cano_mano_v=lv, left_cano_mano_n=ln,
+                    right_cano_mano_v=rv, right_cano_mano_n=rn,
+                    mano_face_closed=self.mano.mano_face_closed)
+        lv, ln, rv, rn = commons.generate_two_manos(self.mano, live_verts)
+        item.update(left_live_mano_v=lv, left_live_mano_n=ln,
+                    right_live_mano_v=rv, right_live_mano_n=rn)
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -197,25 +212,30 @@ class MvRgbDatasetBase:
 
     # ------------------------------------------------------------------
     def __len__(self):
-        return len(self.data_list)
+        return len(self.data_list) if self.training else len(self.pose_list)
 
     def __getitem__(self, index):
         return self.getitem(index, self.training)
 
     def getitem(self, index, training=True, **kwargs):
         """A training item (``skip_images=True``: pose maps and camera
-        only), or with ``eval=True`` the item of ``pose_idx`` /
-        ``view_idx``."""
-        if not (training or kwargs.get("eval", False)):
-            raise NotImplementedError(_TESTING)
-        pose_idx, view_idx = self.data_list[index]
-        pose_idx = kwargs.get("pose_idx", pose_idx)
-        view_idx = kwargs.get("view_idx", view_idx)
+        only), with ``eval=True`` the item of ``pose_idx`` / ``view_idx``,
+        or with ``training=False`` the testing item of ``pose_list[index]``
+        seen by ``extr`` / ``intr`` at ``img_w`` x ``img_h`` (default: the
+        512^2 front camera)."""
+        if training or kwargs.get("eval", False):
+            pose_idx, view_idx = self.data_list[index]
+            pose_idx = kwargs.get("pose_idx", pose_idx)
+            view_idx = kwargs.get("view_idx", view_idx)
+            data_idx = (pose_idx, view_idx)
+        else:
+            pose_idx, view_idx = self.pose_list[index], None
+            data_idx = pose_idx
 
         f = self._frame_of_pose[pose_idx]
         item = dict(
             item_idx=index,
-            data_idx=(pose_idx, view_idx),
+            data_idx=data_idx,
             time_stamp=np.float32(pose_idx),
             joints=self.live_joints[f, :22],
             kin_parent=np.asarray(
@@ -256,7 +276,7 @@ class MvRgbDatasetBase:
                         img_w=int(self.img_widths[view_idx]),
                         extr=self.extr_mats[view_idx],
                         intr=self.intr_mats[view_idx])
-        else:
+        elif training:
             color, mask = self.load_color_mask_images(pose_idx, view_idx)
             color = (color / 255.0).astype(np.float32)
             boundary, mask_bin = self.get_boundary_mask(mask)
@@ -267,7 +287,20 @@ class MvRgbDatasetBase:
                 color_img=color,
                 mask_img=mask_bin.astype(np.float32),
                 boundary_mask_img=boundary.astype(np.float32))
+        else:
+            item.update(
+                img_h=kwargs.get("img_h", 512),
+                img_w=kwargs.get("img_w", 512),
+                intr=kwargs.get("intr", np.array(
+                    [[550, 0, 256], [0, 550, 256], [0, 0, 1]], np.float32)),
+                extr=kwargs.get("extr", self._default_front_extr(item)))
+            self._attach_mano(item, self.live_vertices[f])
         return item
+
+    @staticmethod
+    def _default_front_extr(item):
+        return viz.calc_front_mv(item["live_bounds"].mean(0),
+                                 tar_pos=np.array([0, 0, 2.5], np.float32))
 
     # -- subclass hooks -------------------------------------------------
     def load_cam_data(self):
@@ -294,11 +327,93 @@ class MvRgbDatasetBase:
         pixels in (5, 250) (ref: dataset_mv_rgb.py:263-285)."""
         return image_io.boundary_mask(mask, kernel_size)
 
-    def compute_pca(self, n_components: int = 10):
-        raise NotImplementedError(_TESTING)
+    # -- PCA pose-space projection (ref: dataset_mv_rgb.py:287-321) ------
+    def _front_pose_map(self, pose_idx: int) -> np.ndarray:
+        m = image_io.imread(os.path.join(self.data_dir, "smpl_pos_map",
+                                         "%08d.exr" % pose_idx))
+        return m[:, : m.shape[1] // 2]
 
-    def transform_pca(self, pose_conds: np.ndarray, sigma_pca: float = 2.0):
-        raise NotImplementedError(_TESTING)
+    def compute_pca(self, n_components: int = 10, device="cpu"):
+        """Fit the PCA of the front pose maps' masked texels over the pose
+        list, or load it from ``smpl_pos_map/pca_<n>.npz``. The fit stacks
+        X (poses x 3 masked texels) on ``device`` in float32, the EXRs'
+        own precision (2001 poses of the shipped configs' ~797k values:
+        6.4 GB), and takes the top eigenpairs of the centred Gram matrix
+        X X^T in float64; the components are V^T = S^-1 U^T X. The Gram
+        matrix needs every pair of frames, so X is stacked rather than
+        streamed (streaming would read every EXR twice).
+        ``pca_fit_s`` holds the seconds of the fit or the load."""
+        t0 = time.perf_counter()
+        path = os.path.join(self.data_dir, "smpl_pos_map",
+                            "pca_%d.npz" % n_components)
+        if os.path.exists(path):
+            with np.load(path) as f:
+                pca = {k: f[k] for k in f.files}
+        else:
+            pca = _fit_pca(self._front_pose_map, self.pose_list,
+                           n_components, torch.device(device))
+            np.savez(path, **pca)
+        self.pos_map_mask = pca.pop("mask")
+        self.pca = pca
+        self._pca_on = {}
+        self.pca_fit_s = time.perf_counter() - t0
+
+    def transform_pca(self, pose_conds, sigma_pca: float = 2.0):
+        """Project (M, 3) masked texels (an array, or a tensor on any
+        device) onto the components, clamp each coordinate to +-sigma_pca
+        standard deviations, and map back; float64 arithmetic, the input's
+        type and dtype out."""
+        x = torch.as_tensor(pose_conds)
+        dev = x.device
+        if dev not in self._pca_on:
+            self._pca_on[dev] = {k: torch.as_tensor(v, dtype=torch.float64,
+                                                    device=dev)
+                                 for k, v in self.pca.items()}
+        p = self._pca_on[dev]
+        low = (x.reshape(1, -1).double() - p["mean"]) @ p["components"].T
+        lim = sigma_pca * torch.sqrt(p["explained_variance"])
+        low = torch.maximum(torch.minimum(low, lim), -lim)
+        out = (low @ p["components"] + p["mean"]).reshape(-1, 3).to(x.dtype)
+        return out if torch.is_tensor(pose_conds) else out.numpy()
+
+
+@torch.no_grad()
+def _fit_pca(front_pose_map, pose_list, n_components: int,
+             device: torch.device, block_bytes: int = 2 ** 28) -> dict:
+    """mean (D,), components (k, D), explained_variance (k,) in float64 and
+    the texel mask (H, W) of the first frame; D = 3 masked texels. X is
+    held in float32; the centring, the Gram matrix and the components are
+    computed in float64 over blocks of columns of at most ``block_bytes``
+    in float64."""
+    first = front_pose_map(pose_list[0])
+    mask = np.linalg.norm(first, axis=-1) > 1e-6
+    n = len(pose_list)
+    x = torch.empty((n, 3 * int(mask.sum())), dtype=torch.float32,
+                    device=device)
+    for i, pose_idx in enumerate(pose_list):
+        m = first if i == 0 else front_pose_map(pose_idx)
+        x[i] = torch.as_tensor(m[mask].reshape(-1), device=device)
+    step = max(1, block_bytes // (8 * n))
+    cols = [slice(j, j + step) for j in range(0, x.shape[1], step)]
+    mean = torch.cat([x[:, c].double().mean(0) for c in cols])
+    gram = torch.zeros((n, n), dtype=torch.float64, device=device)
+    for c in cols:
+        xc = x[:, c].double() - mean[c]
+        gram += xc @ xc.T
+    evals, evecs = torch.linalg.eigh(gram)              # ascending
+    evals = evals.flip(0)[:n_components].clamp(min=0)
+    evecs = evecs.flip(1)[:, :n_components]
+    s = torch.sqrt(evals)
+    # a direction of zero variance gets a zero component: its clamped
+    # coordinate is 0 whatever the direction
+    inv_s = torch.where(s > 1e-12 * max(float(s[0]), 1e-300), 1.0 / s,
+                        torch.zeros_like(s))
+    proj = (evecs * inv_s).T
+    comps = torch.cat([proj @ (x[:, c].double() - mean[c]) for c in cols],
+                      dim=1)
+    return dict(mean=mean.cpu().numpy(), components=comps.cpu().numpy(),
+                explained_variance=(evals / max(n - 1, 1)).cpu().numpy(),
+                mask=mask)
 
 
 # ---------------------------------------------------------------------------

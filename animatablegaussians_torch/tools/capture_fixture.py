@@ -12,7 +12,15 @@
   * an SMPL-X npz with random model tensors (``write_smplx``);
   * ``smpl_pos_map/``: the canonical position and normal EXRs and
     ``init_pts_lbs.npy`` from ``utils.synthetic.make_cano_map``, and one
-    pose-map EXR per frame.
+    pose-map EXR per frame (the same map each frame, or with
+    ``pose_map_jitter`` each frame's masked texels moved by that times
+    N(0, 1), so that the frames span a PCA basis).
+
+For the animation entry point (``-m test``) it also writes a driving-pose
+archive (``write_pose_sequence``: THuman4-style or AMASS-style ``.npz``)
+and the MANO index maps (``write_mano``: a numpy copy of
+``tests/test_datasets.py::write_synthetic_mano`` with the SMPL-X vertex
+count as a parameter).
 
 A numpy copy of ``tests/test_driver.py::full_capture`` and
 ``tests/test_datasets.py::write_synthetic_smplx``, parametrised by size:
@@ -67,10 +75,55 @@ def write_smplx(path: str, n_verts: int = 120, n_faces: int = 50,
     )
 
 
+def write_pose_sequence(path: str, n_frames: int, style: str = "thuman4",
+                        seed: int = 0, scale: float = 0.05) -> str:
+    """A driving-pose archive of ``n_frames`` frames whose poses and
+    translations are ``scale`` N(0, 1): THuman4-style (global_orient,
+    transl, body_pose (63) and both hands' poses (45)) or AMASS-style
+    (``poses`` (52 x 3) and ``trans``). ``PoseDataset`` tells them apart
+    by the path: a THuman4 path names ``thuman4``, an AMASS path none of
+    thuman4, actorshq and avatarrex. Returns ``path``."""
+    rng = np.random.default_rng(seed)
+
+    def draw(dim):
+        return scale * rng.standard_normal((n_frames, dim)).astype(np.float32)
+
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    if style == "thuman4":
+        np.savez(path, global_orient=draw(3), transl=draw(3),
+                 body_pose=draw(63), left_hand_pose=draw(45),
+                 right_hand_pose=draw(45))
+    elif style == "amass":
+        np.savez(path, poses=draw(52 * 3), trans=draw(3))
+    else:
+        raise ValueError(f"unknown pose archive style {style!r}")
+    return path
+
+
+def write_mano(mano_dir: str, n_verts_total: int = 120, n_hand: int = 12,
+               seed: int = 3) -> str:
+    """SMPL-X-hand -> MANO vertex index maps and closed-fan faces in the
+    reference layout (ref: dataset/commons.py:8-19): ``n_hand`` random
+    vertices of ``n_verts_total`` per hand and 20 random faces. Returns
+    ``mano_dir``."""
+    os.makedirs(mano_dir, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    lid = rng.choice(n_verts_total, n_hand, replace=False)
+    rid = rng.choice(n_verts_total, n_hand, replace=False)
+    np.savez(os.path.join(mano_dir, "smplx_lhand_to_mano_rhand.npz"),
+             smpl_vert_id_to_mano=lid.astype(np.int64))
+    np.savez(os.path.join(mano_dir, "smplx_rhand_to_mano_rhand.npz"),
+             smpl_vert_id_to_mano=rid.astype(np.int64))
+    faces = rng.integers(0, n_hand, (20, 3)).astype(np.int64)
+    np.savetxt(os.path.join(mano_dir, "mano_face_close.txt"), faces,
+               fmt="%d")
+    return mano_dir
+
+
 def write_capture(data_dir: str, n_frames: int = 4,
                   cams=("cam00", "cam01"), img_w: int = 96, img_h: int = 96,
                   map_h: int = 64, n_verts: int = 120, n_faces: int = 50,
-                  seed: int = 0) -> str:
+                  seed: int = 0, pose_map_jitter: float = 0.0) -> str:
     """Write the capture under ``data_dir``; returns the SMPL-X npz's
     path."""
     os.makedirs(data_dir, exist_ok=True)
@@ -118,6 +171,11 @@ def write_capture(data_dir: str, n_frames: int = 4,
     np.save(os.path.join(pm_dir, "init_pts_lbs.npy"), lbs)
     half_pose = synthetic.pose_map_from_cano(pos)        # (S/2, S/2, 6)
     flat = np.concatenate([half_pose[..., :3], half_pose[..., 3:]], axis=1)
+    texels = np.linalg.norm(flat, axis=-1, keepdims=True) > 1e-6
     for fr in range(n_frames):
-        exr.write_exr(os.path.join(pm_dir, "%08d.exr" % fr), flat)
+        m = flat
+        if pose_map_jitter:
+            m = flat + texels * (pose_map_jitter * rng.standard_normal(
+                flat.shape)).astype(np.float32)
+        exr.write_exr(os.path.join(pm_dir, "%08d.exr" % fr), m)
     return smpl_path

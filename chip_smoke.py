@@ -1,7 +1,8 @@
 """GPU smoke run of the PyTorch / CUDA port: the novel-pose render path,
 the avatar train step, and the CNN's separable FIRs through their kernel in
 the render (with mean hands and pose-map regeneration) and in the B = 2
-batched train step and its scan.
+batched train step and its scan; then the two entry points a user runs,
+training and animation, on a full-width capture on disk.
 
     python3 chip_smoke.py
 
@@ -87,7 +88,9 @@ itself. Phases, each printing a line, any failure exiting non-zero:
                 writes under build/ (2 cameras x 3 frames of 1500x2048
                 JPEGs, map_h 1024 = 531,520 Gaussians, SMPL-X's real
                 shapes) with the bench's settings at channel_max 512: 2
-                pretrain iterations, one epoch of 6 steps with a mini-test
+                pretrain iterations (each frame's pose map moved by 0.01
+                N(0, 1) m, so phase 16's PCA has a basis), one epoch of
+                6 steps with a mini-test
                 and a batch checkpoint at step 4, epoch_latest; launch
                 counters reset just before (the backward blend once a step,
                 the FIR kernel per ``fir_count`` of a pretrain step, a
@@ -98,7 +101,33 @@ itself. Phases, each printing a line, any failure exiting non-zero:
                 the JPEG codec, dataset init (and its SMPL-X forward)
                 seconds, the loader's mean wait, the median ms of a train
                 iteration with host I/O beside phase 9's bare step, peak
-                memory and the first item's n_pairs.
+                memory and the first item's n_pairs;
+ 16. animate  - the animation entry point as a user runs it,
+                ``main_avatar_torch.main(["-c", cfg, "-m", "test"])``, on
+                phase 15's capture with its epoch_latest weights, the
+                position and other heads' outputs zeroed as in phase 6's
+                fixture (``test.prev_ckpt``), three times. Run A: 12
+                THuman4-style poses that tools/capture_fixture.py writes,
+                the free orbit with global_orient at 1024x1024, 4 frames a
+                render_sequence call, PCA with 2 components. Run B: 2
+                poses, the front view, fix_hand with a MANO directory at
+                SMPL-X's 10,475 vertices, save_ply, save_tex_map and
+                render_skeleton (one render a frame). Run C: run A at the
+                default seq_frames, 8 (8 + 4 frames). Launch counters reset
+                before each run (expand and forward blend once a frame, the
+                backward blend never, the FIR kernel ``fir_count`` a call
+                to the heads); the files' names by the JAX package's rule;
+                each frame, collected through a wrapped ``_write_frame``,
+                against the plain path's same call on its items (phase 6's
+                tolerance) and against a render of the frame alone
+                (ATOL_FIR_IMG), by tools/frame_compare.py's flip rule; the
+                frames' coverage against a floor; the first frame's pairs,
+                contributions and blend bound; the PLYs' positions against
+                the render's, bit for bit; transform_pca on the card
+                against its CPU float64 version; the PoseDataset, SMPL-X
+                and PCA-fit seconds, ms/frame with host I/O beside phase
+                7's render_sequence, peak memory. The capture is removed
+                at the end.
 
 Each kernel's record carries its bound: the least time the card could take
 for the same work, the larger of the bytes it must move over the memory
@@ -118,9 +147,11 @@ import functools
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -199,8 +230,23 @@ ATOL_FIR_IMG = 1e-4
 TRAIN_B = 2
 B2_WARMUP, B2_TIMED, SCAN_STEPS = 2, 3, 3
 # phase 15: frames of the capture (two cameras each), pretrain iterations
-# and the heads' width
+# and the heads' width; each frame's pose map moves its texels by this
+# times N(0, 1) metres, so that phase 16's PCA has frames that differ
 DRIVER_FRAMES, DRIVER_PRETRAIN, DRIVER_CHANNEL_MAX = 3, 2, 512
+DRIVER_POSE_JITTER = 0.01
+# phase 16: run A's novel poses, frames a render_sequence call and PCA
+# components (the capture's 3 training frames allow at most 3; the shipped
+# configs' 20 wait for a real capture); run B's frames. Run C animates run
+# A's poses at run_test's default seq_frames, 8
+ANIM_FRAMES, ANIM_SEQ, ANIM_PCA, ANIM_B_FRAMES = 12, 4, 2, 2
+# transform_pca on the card against its float64 CPU version, relative to
+# the largest entry: the same float64 arithmetic on two devices
+RTOL_PCA = 1e-5
+# phase 16's frames, the least share of their pixels with alpha > 1/255:
+# about half the smallest reading on the H100 (0.0812 of a frame, PERF.md),
+# so that an avatar the frames barely show fails (phase 15's random-init
+# heads alone read 0.0046)
+ANIM_COVER_MIN = 0.04
 # scan against host loop on the card, per step's loss terms: the same steps
 # on the same batches and draws, but the blend's atomics and the events of
 # RTOL_GRAD make every run's update differ a little. On the H100 two host
@@ -721,13 +767,12 @@ def fir_phase(calls, card: str, dev) -> dict:
                 **{f"bwd_{k}": v for k, v in tot_bwd.items()})
 
 
-def driver_phase(card: str, bare_step_ms: float, records: list) -> None:
-    """Phase 15: ``main_avatar_torch`` trains a full-width capture on disk
-    (see the module docstring); adds each kernel's launches in that run to
-    its record as ``driver_launches``."""
-    import shutil
-    import tempfile
-
+def driver_phase(card: str, bare_step_ms: float, records: list,
+                 tmp: str) -> dict:
+    """Phase 15: ``main_avatar_torch`` trains a full-width capture written
+    under ``tmp`` (see the module docstring); adds each kernel's launches
+    in that run to its record as ``driver_launches``. Returns the run's
+    config, whose capture and checkpoints phase 16 animates."""
     import yaml
 
     import main_avatar_torch
@@ -740,145 +785,467 @@ def driver_phase(card: str, bare_step_ms: float, records: list) -> None:
     from animatablegaussians_torch.training import checkpoint as ck
     from animatablegaussians_torch.tools.render_fixture import RENDER_KEYS
     from animatablegaussians_torch.training.driver import AvatarTrainer
-    from animatablegaussians_torch.utils.cuda_build import BUILD_ROOT
 
-    BUILD_ROOT.mkdir(parents=True, exist_ok=True)
-    tmp = tempfile.mkdtemp(prefix="capture-", dir=BUILD_ROOT)
+    t0 = time.perf_counter()
+    data_dir = os.path.join(tmp, "capture")
+    smpl_path = cf.write_capture(data_dir, n_frames=DRIVER_FRAMES,
+                                 pose_map_jitter=DRIVER_POSE_JITTER,
+                                 **cf.FULL)
+    phase("driver", f"capture written in {time.perf_counter() - t0:.1f}"
+          f" s with the {image_io.CODEC} codec: {DRIVER_FRAMES} frames "
+          f"x 2 cameras of {cf.FULL['img_w']}x{cf.FULL['img_h']}, "
+          f"map_h {cf.FULL['map_h']}, SMPL-X {cf.FULL['n_verts']} "
+          "vertices")
+    ckpt_dir = os.path.join(tmp, "ckpt")
+    opt = dict(
+        train=dict(
+            dataset="MvRgbDatasetAvatarReX",
+            data=dict(data_dir=data_dir, frame_range=[0, DRIVER_FRAMES],
+                      used_cam_ids=[0, 1], load_smpl_pos_map=True,
+                      smpl_model_path=smpl_path),
+            net_ckpt_dir=ckpt_dir,
+            ckpt_interval=dict(epoch=1, batch=4), eval_interval=4,
+            eval_training_ids=[0, 0], lr_init=5e-4,
+            loss_weight=dict(l1=1.0, lpips=0.1, offset=0.005),
+            lpips_weights="random", finetune_color=False, batch_size=1,
+            num_workers=8, random_bg_color=True),
+        model=dict(with_viewdirs=True, channel_max=DRIVER_CHANNEL_MAX))
+    cfg = os.path.join(tmp, "avatar.yaml")
+    with open(cfg, "w") as fp:
+        yaml.safe_dump(opt, fp)
+    argv = ["-c", cfg, "-m", "train"]
+
+    AvatarTrainer.PRETRAIN_ITERS = DRIVER_PRETRAIN
+    counted = (expand_pairs, blend_tiles, blend_backward,
+               fir.upfirdn2d_fir)
+    for fn in counted:
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = main_avatar_torch.main(argv, num_epochs=1)
+    wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = {fn.__name__: fn.launches for fn in counted}
+    net = trainer.avatar_net
+    n_steps = trainer.iter_idx
+    n_eval = n_steps // opt["train"]["eval_interval"]
+    pre_fwd, pre_grad = fir_count(net, ("position_net", "other_net"))
+    n_fir, n_fir_grad = fir_count(net)
+    want = {"expand_pairs": n_steps + n_eval,
+            "blend_tiles": n_steps + n_eval, "blend_backward": n_steps,
+            "upfirdn2d_fir": DRIVER_PRETRAIN * (pre_fwd + pre_grad)
+            + n_steps * (n_fir + n_fir_grad) + n_eval * n_fir}
+    phase("driver", f"main_avatar_torch {' '.join(argv[2:])}: "
+          f"{DRIVER_PRETRAIN} pretrain iterations, {n_steps} steps, "
+          f"{n_eval} mini-test in {wall:.1f} s; kernel launches "
+          f"{launches} (want {want}: FIR {pre_fwd} + {pre_grad} a "
+          f"pretrain step, {n_fir} + {n_fir_grad} a train step, "
+          f"{n_fir} a mini-test)")
+    if n_steps != 2 * DRIVER_FRAMES or launches != want:
+        raise AssertionError(f"driver: {n_steps} steps, launches "
+                             f"{launches}, want {want}")
+    for r in records:
+        r["driver_launches"] = launches[r["name"]]
+    for i, t in enumerate(trainer.terms):
+        phase("driver", f"step {i + 1}: " + ", ".join(
+            f"{k} {v:.6f}" for k, v in t.items()))
+        if not all(math.isfinite(v) for v in t.values()):
+            raise AssertionError(f"driver step {i + 1}: non-finite {t}")
+    pre = torch.load(os.path.join(ckpt_dir, "pretrained", "net.pt"),
+                     map_location="cpu", weights_only=True)["avatar_net"]
+    moved = {g: max(float((p.detach().cpu() - pre[n]).abs().max())
+                    for n, p in named if p.numel()
+                    and not n.startswith("cano_gaussian.features"))
+             for g, named in param_groups(net).items()}
+    phase("driver", "largest parameter change per group over the epoch: "
+          + ", ".join(f"{g} {m:.2e}" for g, m in moved.items()))
+    if not min(moved.values()) > 0:
+        raise AssertionError(f"driver: a parameter group did not move: "
+                             f"{moved}")
+    ds = trainer.dataset
+    it_med = statistics.median(trainer.iter_ms)
+    wait = 1e3 * statistics.mean(trainer.loader_waits)
+    phase("driver", f"dataset init {trainer.dataset_init_s:.3f} s, of "
+          f"which the SMPL-X forward {ds.smplx_s:.3f} s ({len(ds)} "
+          f"items); loader wait mean {wait:.3f} ms a step (per step "
+          f"{['%.2f' % (1e3 * w) for w in trainer.loader_waits]}); train "
+          f"iteration median {it_med:.2f} ms with host I/O (per "
+          f"iteration {['%.2f' % t for t in trainer.iter_ms]}) against "
+          f"the bare step's {bare_step_ms:.2f} ms (phase 9); peak "
+          f"memory {peak_gb:.2f} GiB ({card})")
+    eval_img = os.path.join(ckpt_dir, "eval", "training_4.jpg")
+    if not os.path.exists(eval_img):
+        raise AssertionError(f"driver: no mini-test image {eval_img}")
+    with torch.no_grad():
+        item = ds.getitem(0)
+        n_pairs = net.render({k: torch.as_tensor(item[k],
+                                                 device=trainer.device)
+                              for k in RENDER_KEYS},
+                             img_w=trainer.img_w,
+                             img_h=trainer.img_h)["n_pairs"]
+    phase("driver", f"first item's n_pairs after the epoch {n_pairs}; "
+          f"mini-test {eval_img} ({os.path.getsize(eval_img)} bytes)")
+
+    # a second trainer resumed from epoch_latest equals the first
+    d, with_optm = ck.resolve_resume_dir(ckpt_dir)
+    second = AvatarTrainer(opt)
+    second.load_ckpt(d, load_optm=with_optm)
+    same = (second.iter_idx == trainer.iter_idx == second.state.iter_idx
+            and d.endswith("epoch_latest") and with_optm)
+    sa, sb = trainer.state, second.state
+    for k, v in sa.net.state_dict().items():
+        same &= torch.equal(v, sb.net.state_dict()[k])
+    oa, ob = sa.optimizer.state_dict(), sb.optimizer.state_dict()
+    same &= oa["param_groups"] == ob["param_groups"]
+    for i, st in oa["state"].items():
+        same &= all(torch.equal(v, ob["state"][i][k])
+                    for k, v in st.items())
+    same &= sa.scheduler.state_dict() == sb.scheduler.state_dict()
+    phase("driver", f"resumed from {os.path.basename(d)}: iter_idx "
+          f"{second.iter_idx}, weights, Adam and schedule bit for bit "
+          f"equal: {same}")
+    if not same:
+        raise AssertionError("driver: the resumed state differs")
+    del trainer, second, net, sa, sb
+
+    # the CLI again: it resumes from epoch_latest and trains on
+    trainer = main_avatar_torch.main(argv, num_epochs=1)
+    batches = sorted(x for x in os.listdir(ckpt_dir)
+                     if x.startswith("batch_"))
+    phase("driver", f"second CLI run resumed to step {trainer.iter_idx};"
+          f" checkpoints left: {batches}")
+    if trainer.iter_idx != 4 * DRIVER_FRAMES or batches != [
+            f"batch_{4 * DRIVER_FRAMES}"]:
+        raise AssertionError(f"driver resume: step {trainer.iter_idx}, "
+                             f"{batches}")
+    del trainer
+    return opt
+
+
+def blend_bytes(n_pts: int, n_pairs: int, gx: int, gy: int, img_w: int,
+                img_h: int) -> int:
+    """The bytes the forward blend must move: rows, gids and tile ranges in;
+    colour, depth and T_final out."""
+    return (n_pts * 40 + n_pairs * 4 + (gx * gy + 1) * 8
+            + img_w * img_h * 5 * 4)
+
+
+def frame_blend_work(net, g: dict, items: dict, img_w: int, img_h: int):
+    """One frame's blend work, from the posed Gaussians its render returned,
+    projected, binned and packed as ``api.render`` does (the plain
+    versions, so nothing is counted): (pairs, contributions, the forward
+    blend's bound ms and what bounds it)."""
+    from animatablegaussians_torch.ops.rasterize import api, binning
+    from animatablegaussians_torch.ops.rasterize.blend import TILE
+    from animatablegaussians_torch.ops.rasterize.preprocess import \
+        preprocess
+    intr, extr = items["intr"], items["extr"]
+    vm, pm = api._full_projection(extr, intr, img_w, img_h)
+    pre = preprocess(g["positions"], g["scales"], g["rotations"], vm, pm,
+                     img_w / (2.0 * intr[0, 0]), img_h / (2.0 * intr[1, 1]),
+                     img_w, img_h)
+    pre = pre._replace(valid=pre.valid & net.valid,
+                       radii=torch.where(net.valid, pre.radii,
+                                         torch.zeros_like(pre.radii)))
+    rows = api._pack_rows(pre, g["opacity"].reshape(-1), g["colors"])
+    gx, gy = -(-img_w // TILE), -(-img_h // TILE)
+    bins = binning.bin_gaussians(pre.means2d, pre.depths, pre.radii,
+                                 pre.valid, img_w, img_h, TILE, plain=True)
+    n_contrib = pair_work(rows, bins.gid, bins.starts, gx, img_w, img_h)[2]
+    return (bins.n_pairs, n_contrib) + bound(
+        blend_bytes(net.n_points, bins.n_pairs, gx, gy, img_w, img_h),
+        n_contrib * (OPS_EVAL + OPS_FWD_CONTRIB))
+
+
+def jax_file_indices(pose_list) -> list:
+    """The frame file indices the JAX package's PoseDataset gives in
+    run_test's call order (getitem_fast(0), then every index): a pose
+    not past the last index takes the last + 1, pose 0 stays 0
+    (animatablegaussians_tpu/data/pose_dataset.py:295-321)."""
+    last, out = 0, []
+    for i in [0] + list(range(len(pose_list))):
+        p = pose_list[i]
+        last = p if (p == 0 or p > last) else last + 1
+        out.append(last)
+    return out[1:]
+
+
+def animate_checkpoint(opt: dict, path: str, dev) -> str:
+    """Phase 15's epoch_latest with the position and other heads' ToRGB
+    weights zeroed (``render_fixture.zero_head_outputs``), written to
+    ``path`` in the reference layout: the Gaussians keep their canonical
+    attributes, as in phase 6's fixture, while all three heads' conv work
+    is unchanged."""
+    from animatablegaussians_torch.tools import render_fixture as rf
+    from animatablegaussians_torch.training import checkpoint as ck
+    from animatablegaussians_torch.training.driver import AvatarTrainer
+
+    net = AvatarTrainer._build_net(opt["train"]["data"]["data_dir"],
+                                   opt.get("model", {}), dev)
+    meta = ck.load_checkpoint(os.path.join(opt["train"]["net_ckpt_dir"],
+                                           "epoch_latest"), net)
+    rf.zero_head_outputs(net)
+    ck.save_checkpoint(path, net, **meta)
+    return path
+
+
+def animate_phase(card: str, tmp: str, opt: dict, seq_ms: float,
+                  records: list) -> None:
+    """Phase 16: ``main_avatar_torch -m test`` animates phase 15's capture
+    with its epoch_latest weights (the position and other heads' outputs
+    zeroed), in three runs (see the module docstring); adds each kernel's
+    launches in them to its record as ``animate_launches``."""
+    import yaml
+
+    import main_avatar_torch
+    from animatablegaussians_torch.ops import fir
+    from animatablegaussians_torch.ops.rasterize.blend import (
+        blend_backward, blend_tiles)
+    from animatablegaussians_torch.ops.rasterize.expand import expand_pairs
+    from animatablegaussians_torch.testing import animate
+    from animatablegaussians_torch.tools import capture_fixture as cf
+
+    data = opt["train"]["data"]
+    t0 = time.perf_counter()
+    ckpt = animate_checkpoint(opt, os.path.join(tmp, "animate_ckpt"),
+                              torch.device("cuda:0"))
+    torch.cuda.empty_cache()
+    phase("animate", f"checkpoint: phase 15's epoch_latest with the "
+          f"position and other heads' outputs zeroed, so the Gaussians keep "
+          f"their canonical opacity and scales (as phase 6's fixture), in "
+          f"{time.perf_counter() - t0:.1f} s")
+    poses = cf.write_pose_sequence(os.path.join(tmp, "thuman4",
+                                                "pose_00.npz"),
+                                   ANIM_FRAMES, seed=16)
+    mano = cf.write_mano(os.path.join(tmp, "mano"),
+                         n_verts_total=cf.FULL["n_verts"])
+    pose_data = dict(data_path=poses, smpl_model_path=data["smpl_model_path"])
+    free = dict(pose_data=pose_data, view_setting="free", global_orient=True,
+                img_scale=1.0, n_pca=ANIM_PCA, sigma_pca=2.0)
+    runs = {
+        "A": dict(free, seq_frames=ANIM_SEQ),
+        "B": dict(pose_data=dict(pose_data, frame_range=[0, ANIM_B_FRAMES],
+                                 mano_dir=mano),
+                  view_setting="front", img_scale=1.0, n_pca=-1,
+                  fix_hand=True, fix_hand_id=1, save_ply=True,
+                  save_tex_map=True, render_skeleton=True),
+        "C": free}
+    phase("animate", f"run A: {ANIM_FRAMES} THuman4-style poses, free orbit "
+          f"with global_orient at 1024x1024, {ANIM_SEQ} frames a "
+          f"render_sequence call, PCA with {ANIM_PCA} components (the "
+          f"capture's {DRIVER_FRAMES} training frames allow at most "
+          f"{DRIVER_FRAMES}; the shipped configs' 20 wait for a real "
+          f"capture); run B: {ANIM_B_FRAMES} poses, front view, fix_hand, "
+          "save_ply, save_tex_map, render_skeleton, one render a frame; "
+          "run C: run A at the default seq_frames (8), so 8 + 4 frames")
+
+    # the frames are collected in memory, each with its write time
+    frames = []
+    inner_write = animate._write_frame
+
+    def write(item, items, extr, intr, img_w, img_h, output, *rest):
+        inner_write(item, items, extr, intr, img_w, img_h, output, *rest)
+        frames.append(dict(item=item, items=items, size=(img_w, img_h),
+                           output=output, t=time.perf_counter()))
+
+    counted = (expand_pairs, blend_tiles, blend_backward, fir.upfirdn2d_fir)
+    total = {fn.__name__: 0 for fn in counted}
+    animate._write_frame = write
     try:
-        t0 = time.perf_counter()
-        data_dir = os.path.join(tmp, "capture")
-        smpl_path = cf.write_capture(data_dir, n_frames=DRIVER_FRAMES,
-                                     **cf.FULL)
-        phase("driver", f"capture written in {time.perf_counter() - t0:.1f}"
-              f" s with the {image_io.CODEC} codec: {DRIVER_FRAMES} frames "
-              f"x 2 cameras of {cf.FULL['img_w']}x{cf.FULL['img_h']}, "
-              f"map_h {cf.FULL['map_h']}, SMPL-X {cf.FULL['n_verts']} "
-              "vertices")
-        ckpt_dir = os.path.join(tmp, "ckpt")
-        opt = dict(
-            train=dict(
-                dataset="MvRgbDatasetAvatarReX",
-                data=dict(data_dir=data_dir, frame_range=[0, DRIVER_FRAMES],
-                          used_cam_ids=[0, 1], load_smpl_pos_map=True,
-                          smpl_model_path=smpl_path),
-                net_ckpt_dir=ckpt_dir,
-                ckpt_interval=dict(epoch=1, batch=4), eval_interval=4,
-                eval_training_ids=[0, 0], lr_init=5e-4,
-                loss_weight=dict(l1=1.0, lpips=0.1, offset=0.005),
-                lpips_weights="random", finetune_color=False, batch_size=1,
-                num_workers=8, random_bg_color=True),
-            model=dict(with_viewdirs=True, channel_max=DRIVER_CHANNEL_MAX))
-        cfg = os.path.join(tmp, "avatar.yaml")
-        with open(cfg, "w") as fp:
-            yaml.safe_dump(opt, fp)
-        argv = ["-c", cfg, "-m", "train"]
-
-        AvatarTrainer.PRETRAIN_ITERS = DRIVER_PRETRAIN
-        counted = (expand_pairs, blend_tiles, blend_backward,
-                   fir.upfirdn2d_fir)
-        for fn in counted:
-            fn.launches = 0
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        trainer = main_avatar_torch.main(argv, num_epochs=1)
-        wall = time.perf_counter() - t0
-        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-        launches = {fn.__name__: fn.launches for fn in counted}
-        net = trainer.avatar_net
-        n_steps = trainer.iter_idx
-        n_eval = n_steps // opt["train"]["eval_interval"]
-        pre_fwd, pre_grad = fir_count(net, ("position_net", "other_net"))
-        n_fir, n_fir_grad = fir_count(net)
-        want = {"expand_pairs": n_steps + n_eval,
-                "blend_tiles": n_steps + n_eval, "blend_backward": n_steps,
-                "upfirdn2d_fir": DRIVER_PRETRAIN * (pre_fwd + pre_grad)
-                + n_steps * (n_fir + n_fir_grad) + n_eval * n_fir}
-        phase("driver", f"main_avatar_torch {' '.join(argv[2:])}: "
-              f"{DRIVER_PRETRAIN} pretrain iterations, {n_steps} steps, "
-              f"{n_eval} mini-test in {wall:.1f} s; kernel launches "
-              f"{launches} (want {want}: FIR {pre_fwd} + {pre_grad} a "
-              f"pretrain step, {n_fir} + {n_fir_grad} a train step, "
-              f"{n_fir} a mini-test)")
-        if n_steps != 2 * DRIVER_FRAMES or launches != want:
-            raise AssertionError(f"driver: {n_steps} steps, launches "
-                                 f"{launches}, want {want}")
-        for r in records:
-            r["driver_launches"] = launches[r["name"]]
-        for i, t in enumerate(trainer.terms):
-            phase("driver", f"step {i + 1}: " + ", ".join(
-                f"{k} {v:.6f}" for k, v in t.items()))
-            if not all(math.isfinite(v) for v in t.values()):
-                raise AssertionError(f"driver step {i + 1}: non-finite {t}")
-        pre = torch.load(os.path.join(ckpt_dir, "pretrained", "net.pt"),
-                         map_location="cpu", weights_only=True)["avatar_net"]
-        moved = {g: max(float((p.detach().cpu() - pre[n]).abs().max())
-                        for n, p in named if p.numel()
-                        and not n.startswith("cano_gaussian.features"))
-                 for g, named in param_groups(net).items()}
-        phase("driver", "largest parameter change per group over the epoch: "
-              + ", ".join(f"{g} {m:.2e}" for g, m in moved.items()))
-        if not min(moved.values()) > 0:
-            raise AssertionError(f"driver: a parameter group did not move: "
-                                 f"{moved}")
-        ds = trainer.dataset
-        it_med = statistics.median(trainer.iter_ms)
-        wait = 1e3 * statistics.mean(trainer.loader_waits)
-        phase("driver", f"dataset init {trainer.dataset_init_s:.3f} s, of "
-              f"which the SMPL-X forward {ds.smplx_s:.3f} s ({len(ds)} "
-              f"items); loader wait mean {wait:.3f} ms a step (per step "
-              f"{['%.2f' % (1e3 * w) for w in trainer.loader_waits]}); train "
-              f"iteration median {it_med:.2f} ms with host I/O (per "
-              f"iteration {['%.2f' % t for t in trainer.iter_ms]}) against "
-              f"the bare step's {bare_step_ms:.2f} ms (phase 9); peak "
-              f"memory {peak_gb:.2f} GiB ({card})")
-        eval_img = os.path.join(ckpt_dir, "eval", "training_4.jpg")
-        if not os.path.exists(eval_img):
-            raise AssertionError(f"driver: no mini-test image {eval_img}")
-        with torch.no_grad():
-            item = ds.getitem(0)
-            n_pairs = net.render({k: torch.as_tensor(item[k],
-                                                     device=trainer.device)
-                                  for k in RENDER_KEYS},
-                                 img_w=trainer.img_w,
-                                 img_h=trainer.img_h)["n_pairs"]
-        phase("driver", f"first item's n_pairs after the epoch {n_pairs}; "
-              f"mini-test {eval_img} ({os.path.getsize(eval_img)} bytes)")
-
-        # a second trainer resumed from epoch_latest equals the first
-        d, with_optm = ck.resolve_resume_dir(ckpt_dir)
-        second = AvatarTrainer(opt)
-        second.load_ckpt(d, load_optm=with_optm)
-        same = (second.iter_idx == trainer.iter_idx == second.state.iter_idx
-                and d.endswith("epoch_latest") and with_optm)
-        sa, sb = trainer.state, second.state
-        for k, v in sa.net.state_dict().items():
-            same &= torch.equal(v, sb.net.state_dict()[k])
-        oa, ob = sa.optimizer.state_dict(), sb.optimizer.state_dict()
-        same &= oa["param_groups"] == ob["param_groups"]
-        for i, st in oa["state"].items():
-            same &= all(torch.equal(v, ob["state"][i][k])
-                        for k, v in st.items())
-        same &= sa.scheduler.state_dict() == sb.scheduler.state_dict()
-        phase("driver", f"resumed from {os.path.basename(d)}: iter_idx "
-              f"{second.iter_idx}, weights, Adam and schedule bit for bit "
-              f"equal: {same}")
-        if not same:
-            raise AssertionError("driver: the resumed state differs")
-        del trainer, second, net, sa, sb
-
-        # the CLI again: it resumes from epoch_latest and trains on
-        trainer = main_avatar_torch.main(argv, num_epochs=1)
-        batches = sorted(x for x in os.listdir(ckpt_dir)
-                         if x.startswith("batch_"))
-        phase("driver", f"second CLI run resumed to step {trainer.iter_idx};"
-              f" checkpoints left: {batches}")
-        if trainer.iter_idx != 4 * DRIVER_FRAMES or batches != [
-                f"batch_{4 * DRIVER_FRAMES}"]:
-            raise AssertionError(f"driver resume: step {trainer.iter_idx}, "
-                                 f"{batches}")
-        del trainer
+        for name, test in runs.items():
+            frames.clear()
+            test = dict(test, prev_ckpt=ckpt,
+                        output_dir=os.path.join(tmp, f"animate_{name}"))
+            cfg = os.path.join(tmp, f"animate_{name}.yaml")
+            with open(cfg, "w") as fp:
+                yaml.safe_dump(dict(opt, test=test), fp)
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for fn in counted:
+                fn.launches = 0
+            t0 = time.perf_counter()
+            trainer = main_avatar_torch.main(["-c", cfg, "-m", "test"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+            launches = {fn.__name__: fn.launches for fn in counted}
+            for k, v in launches.items():
+                total[k] += v
+            loop_ms = 1e3 * (frames[-1]["t"] - trainer.test_loop_t0) / len(
+                frames)
+            check_animation(name, test, trainer, frames, launches, wall,
+                            peak_gb, loop_ms, seq_ms, data["data_dir"], card)
+            frames.clear()
+            del trainer
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        animate._write_frame = inner_write
+    for rec in records:
+        rec["animate_launches"] = total[rec["name"]]
+
+
+def check_animation(name, test, trainer, frames, launches, wall, peak_gb,
+                    loop_ms, seq_ms, data_dir, card) -> None:
+    """Phase 16's checks of one run: the launches, the file names, each
+    frame against the plain path, the PLYs, the frames' coverage and the
+    first frame's blend work, transform_pca on the card against the CPU,
+    and the run's times."""
+    from animatablegaussians_torch.models.gaussian_model import \
+        load_gaussians_from_ply
+    from animatablegaussians_torch.tools import frame_compare as fc
+    from animatablegaussians_torch.utils import exr
+
+    net = trainer.avatar_net
+    poses = trainer.test_datasets["poses"]
+    n_fir = fir_count(net)[0]
+    n = len(frames)
+    # calls to the heads: one a render_sequence batch (one a frame with
+    # the exports), and the mean hands'
+    per = 1 if (test.get("save_ply") or test.get("save_tex_map")) else int(
+        test.get("seq_frames", 8))
+    calls = -(-n // per) + bool(test.get("fix_hand"))
+    want = {"expand_pairs": n, "blend_tiles": n, "blend_backward": 0,
+            "upfirdn2d_fir": calls * n_fir}
+    phase("animate", f"run {name}: {n} frames in {wall:.1f} s (trainer, "
+          f"datasets, PCA and frames); kernel launches {launches} (want "
+          f"{want}: FIR {n_fir} a call to the heads, {calls} calls)")
+    if n != len(poses) or launches != want:
+        raise AssertionError(f"animate run {name}: {n} frames, launches "
+                             f"{launches}, want {want}")
+
+    # the file names and counts: the JAX package's rule, one per frame
+    names = ["%08d" % i for i in jax_file_indices(poses.pose_list)]
+    folders = {"rgb_map": ".jpg", "mask_map": ".png"}
+    if test.get("save_tex_map"):
+        folders["cano_tex_map"] = ".jpg"
+    if test.get("render_skeleton"):
+        folders["live_skeleton"] = ".jpg"
+    if test.get("save_ply"):
+        folders["posed_gaussians"] = ".ply"
+    out_dir = test["output_dir"]
+    got = {f: sorted(os.listdir(os.path.join(out_dir, f)))
+           for f in sorted(os.listdir(out_dir))}
+    want_files = {f: [x + e for x in names] for f, e in sorted(
+        folders.items())}
+    if got != want_files or [f["item"]["data_idx"] for f in frames] != [
+            int(x) for x in names]:
+        raise AssertionError(f"animate run {name}: files {got}, want "
+                             f"{want_files}")
+
+    # the mean hands of the plain path, from the same fixed frame
+    hand_vals = None
+    if test.get("fix_hand"):
+        m = exr.read_exr(os.path.join(data_dir, "smpl_pos_map",
+                                      "%08d.exr" % test["fix_hand_id"]))
+        half = m.shape[1] // 2
+        hand_vals = net.generate_mean_hands(torch.as_tensor(
+            np.concatenate([m[:, :half], m[:, half:]], axis=2)[..., :3],
+            device=net.lbs.device), plain=True)
+    # each frame against the plain path on the same items: the same call
+    # (a render_sequence batch, or a render) at phase 6's tolerance, and a
+    # render of the frame alone, whose batch-1 convs sum in another order
+    # than the batch's, at ATOL_FIR_IMG; in both, but for the pixels where
+    # an alpha decision flips (tools/frame_compare.py's rule, with the span
+    # of one contribution from the frame's posed Gaussians)
+    kw = dict(bg_color=(1.0, 1.0, 1.0), img_w=frames[0]["size"][0],
+              img_h=frames[0]["size"][1], use_pca=test["n_pca"] >= 1,
+              hand_vals=hand_vals, plain=True)
+    atol_alone = dict.fromkeys(ATOL_BLEND, ATOL_FIR_IMG)
+    same, alone = [], []
+    for b in range(0, n, per):
+        batch = frames[b:b + per]
+        assert all(f["size"] == frames[0]["size"] for f in batch)
+        if len(batch) > 1:
+            out = net.render_sequence({k: torch.stack(
+                [f["items"][k] for f in batch]) for k in batch[0]["items"]},
+                **kw)
+            refs = [{k: v[i] for k, v in out.items()}
+                    for i in range(len(batch))]
+        else:
+            refs = [net.render(batch[0]["items"], **kw)]
+        for f, ref in zip(batch, refs):
+            o = f["output"]
+            for k in ("rgb_map", "depth_map", "mask_map"):
+                if not torch.isfinite(o[k]).all():
+                    raise AssertionError(f"animate run {name}: {k} "
+                                         "non-finite")
+            one = ref if len(batch) == 1 else net.render(f["items"], **kw)
+            g = one["posed_gaussians"]
+            span = fc.contribution_span(
+                g["positions"][net.valid], g["colors"][net.valid],
+                f["items"]["extr"], kw["bg_color"])
+            same.append(fc.flip_diff(o, ref, ATOL_BLEND, span))
+            if len(batch) > 1:
+                alone.append(fc.flip_diff(o, one, atol_alone, span))
+            if test.get("save_ply"):
+                ply = load_gaussians_from_ply(os.path.join(
+                    out_dir, "posed_gaussians",
+                    "%08d.ply" % f["item"]["data_idx"]))
+                pos = o["posed_gaussians"]["positions"][net.valid].cpu()
+                if not (ply["positions"].shape == (net.n_valid, 3)
+                        and torch.equal(torch.from_numpy(ply["positions"]),
+                                        pos)):
+                    raise AssertionError(f"animate run {name}: the PLY's "
+                                         "positions differ from the "
+                                         "render's")
+            del one, g
+        del refs
+    phase("animate", f"run {name}, each frame against the plain path's "
+          f"{'render_sequence' if per > 1 else 'render'} on its items: "
+          + fc.flip_summary(same, ATOL_BLEND)
+          + (f"; against render(plain=True) of the frame alone: "
+             + fc.flip_summary(alone, atol_alone) if alone else "")
+          + (f"; {n} PLYs of {net.n_valid} points, positions equal to "
+             "the render's posed_gaussians[valid] bit for bit"
+             if test.get("save_ply") else ""))
+    cov = [d["in_view"] for d in same]
+    first = net.render(frames[0]["items"], **kw)
+    g = first["posed_gaussians"]
+    opac = g["opacity"].reshape(-1)[net.valid]
+    n_pairs, n_contrib, b_ms, b_by = frame_blend_work(
+        net, g, frames[0]["items"], *frames[0]["size"])
+    phase("animate", f"run {name}: pixels with alpha > 1/255 "
+          f"{min(cov):.4f} to {max(cov):.4f} of a frame (floor "
+          f"{ANIM_COVER_MIN:g}), mean alpha "
+          f"{min(d['mean_alpha'] for d in same):.3e} to "
+          f"{max(d['mean_alpha'] for d in same):.3e}; the first frame's "
+          f"{n_pairs} pairs and {n_contrib} contributions, the forward "
+          f"blend's bound {b_ms:.4f} ms ({b_by}); its valid Gaussians' "
+          f"opacity mean {float(opac.mean()):.3e} (> 1/255 at "
+          f"{float((opac > 1 / 255).float().mean()):.4f} of them)")
+    del first, g
+    if not (fc.flips_ok(same, ATOL_BLEND) and fc.flips_ok(alone, atol_alone)
+            and min(cov) >= ANIM_COVER_MIN):
+        raise AssertionError(f"animate run {name}: frames against the "
+                             f"plain path {same}, alone {alone}")
+
+    fit = trainer.test_datasets["training"] if test["n_pca"] >= 1 else None
+    phase("animate", f"run {name}: PoseDataset init {poses.init_s:.3f} s, "
+          f"of which the SMPL-X forward {poses.smplx_s:.3f} s ({len(poses)}"
+          f" poses)" + (f"; PCA fit or cache load {fit.pca_fit_s:.3f} s"
+                        if fit else "")
+          + f"; {per if per > 1 else 1} frames a call to the heads, "
+          f"{loop_ms:.2f} ms/frame with host I/O (camera, item, pose "
+          f"map, PCA, render, image writes) beside phase 7's "
+          f"render_sequence {seq_ms:.2f} ms/frame at 1500x2048; peak "
+          f"memory {peak_gb:.2f} GiB ({card})")
+    if fit is not None:
+        # transform_pca on the card against its float64 CPU version, on
+        # the last frame's regenerated pose map
+        pm = frames[-1]["items"]["smpl_pos_map"][..., :3]
+        rows = pm[torch.as_tensor(fit.pos_map_mask, device=pm.device)]
+        dev_out = fit.transform_pca(rows, sigma_pca=2.0).cpu().double()
+        cpu_out = fit.transform_pca(rows.cpu().double(), sigma_pca=2.0)
+        rel = float((dev_out - cpu_out).abs().max() / cpu_out.abs().max())
+        moved = float((frames[-1]["items"]["smpl_pos_map_pca"][..., :3]
+                       - pm).abs().max())
+        phase("animate", f"transform_pca on the card vs its CPU float64 "
+              f"version: max |diff| / max |CPU| {rel:.3e} (limit "
+              f"{RTOL_PCA:g}) over {rows.shape[0]} texels, "
+              f"{fit.pca['components'].shape[0]} components; the projection "
+              f"moved the frame's pose map by up to {moved:.3e}")
+        if not rel <= RTOL_PCA:
+            raise AssertionError(f"transform_pca: card vs CPU {rel}")
 
 
 def main() -> int:
@@ -1009,7 +1376,7 @@ def main() -> int:
         # rows, gids and ranges in; colour, depth and T_final out; the
         # operations of the contributing evaluations (a kernel that culls
         # can skip the others, so counting them would not bound it)
-        fwd_bytes = n_pts * 40 + total * 4 + (gx * gy + 1) * 8 + W * H * 5 * 4
+        fwd_bytes = blend_bytes(n_pts, total, gx, gy, W, H)
         b_ms, b_by = bound(fwd_bytes,
                            n_contrib * (OPS_EVAL + OPS_FWD_CONTRIB))
         old_ms, old_by = bound(fwd_bytes, n_eval * OPS_EVAL
@@ -1526,9 +1893,18 @@ def main() -> int:
     del start, batches, scan_batch
 
     # -- 15. the training entry point on a full-width capture --------------
+    # -- 16. the animation entry point on that capture and checkpoint -----
     del net, train_items, items, titems, batch, lpips, step_b, tkw, kw
     torch.cuda.empty_cache()
-    driver_phase(card, step_med, records)
+    cuda_build.BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="capture-", dir=cuda_build.BUILD_ROOT)
+    try:
+        driver_opt = driver_phase(card, step_med, records, tmp)
+        torch.cuda.empty_cache()
+        animate_phase(card, tmp, driver_opt, statistics.median(t_seq),
+                      records)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -246,14 +246,18 @@ def test_dataset_items_match_jax(capture, route):
         _close(g, w, "cano mano")
 
 
-def test_dataset_unported_routes_raise(capture):
+def test_dataset_unported_routes_raise(capture, tmp_path):
+    """The routes of the template stack stay refused: the dataset's nerf
+    mode and PoseDataset.getitem's NeRF rays."""
+    from animatablegaussians_torch.data import PoseDataset
     _, tds = capture
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tds.getitem(0, training=False)
+        tmv.MvRgbDatasetAvatarReX(tds.data_dir, mode="nerf")
+    path = cf.write_pose_sequence(str(tmp_path / "thuman4_pose_00.npz"), 2)
+    poses = PoseDataset(path, smpl_model_path=os.path.join(
+        tds.data_dir, "SMPLX_SYNTH.npz"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tds.compute_pca()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmv.MvRgbDatasetAvatarReX(tds.data_dir, training=False)
+        poses.getitem(0)
 
 
 def test_actorshq_cameras_match_jax(tmp_path):

@@ -222,8 +222,8 @@ def test_avatar_trainer_end_to_end(capture, tmp_path, monkeypatch):
     """main_avatar_torch -m train with nothing to resume: TF32 off, 3
     pretrain iterations, one epoch of 6 steps with snapshots, logs and
     rotating checkpoints; a second trainer resumed from epoch_latest equals
-    the first bit for bit; the CLI again resumes from it; -m test is
-    refused."""
+    the first bit for bit; the CLI again resumes from it; -m test renders
+    novel poses with epoch_latest's weights."""
     data_dir, smpl_path = capture
     opt = _make_opt(data_dir, smpl_path, str(tmp_path / "ckpt"))
     cfg = str(tmp_path / "avatar.yaml")
@@ -275,5 +275,21 @@ def test_avatar_trainer_end_to_end(capture, tmp_path, monkeypatch):
                                      num_epochs=0, device="cpu")
     assert resumed.iter_idx == resumed.state.iter_idx == 6
     assert resumed.epoch_idx == 1
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        main_avatar_torch.main(["-c", cfg, "-m", "test"])
+    # -m test animates two novel poses with the trained weights
+    opt["test"] = dict(
+        pose_data=dict(data_path=cf.write_pose_sequence(
+            str(tmp_path / "thuman4_pose_00.npz"), 2),
+            smpl_model_path=smpl_path),
+        view_setting="front", img_scale=0.125, n_pca=-1, save_ply=True,
+        prev_ckpt=os.path.join(base, "epoch_latest"),
+        output_dir=str(tmp_path / "animation"))
+    with open(cfg, "w") as fp:
+        yaml.safe_dump(opt, fp)
+    tested = main_avatar_torch.main(["-c", cfg, "-m", "test"], device="cpu")
+    assert tested.iter_idx == 6
+    for k, v in tested.avatar_net.state_dict().items():
+        assert torch.equal(v, trainer.avatar_net.state_dict()[k]), k
+    for folder, ext in (("rgb_map", "jpg"), ("mask_map", "png"),
+                        ("posed_gaussians", "ply")):
+        assert sorted(os.listdir(tmp_path / "animation" / folder)) == [
+            f"{i:08d}.{ext}" for i in range(2)], folder
