@@ -12,8 +12,11 @@ Routes, in the ``3dgs`` mode: training items, ``eval=True`` items (a fixed
 pose and view), ``skip_images=True`` items (pose maps and cameras only, for
 the pretrain phase) and, with ``training=False``, testing items over the
 pose list (a caller's camera or the 512^2 default front camera, with the
-canonical and live MANO items). The ``nerf`` mode belongs to the template
-stack (ROADMAP.md §1) and raises ``NotImplementedError``.
+canonical and live MANO items). In the ``nerf`` mode (the template stack)
+a training item carries ``nerf_random``, ``sample_rays_for_training``'s
+1024 random rays of the view, drawn from the dataset's own
+``numpy.random.Generator`` seeded with ``ray_seed`` (the JAX dataset draws
+from an unseeded one), the camera and the MANO items.
 
 The PCA pose projection of the animation path (``compute_pca`` /
 ``transform_pca``, ref: dataset_mv_rgb.py:287-321) is the exact PCA in
@@ -50,17 +53,16 @@ class MvRgbDatasetBase:
                  load_smpl_nml_map: bool = False, mode: str = "3dgs",
                  smpl_model_path: Optional[str] = None,
                  precompute_device: str = "cpu",
-                 mano_dir: Optional[str] = None):
-        if mode != "3dgs":
-            raise NotImplementedError(
-                f"dataset mode {mode!r} is not ported (the nerf mode belongs "
-                "to the template stack, ROADMAP.md §1)")
+                 mano_dir: Optional[str] = None, ray_seed: int = 0):
+        if mode not in ("3dgs", "nerf"):
+            raise ValueError(f"Invalid dataset mode {mode!r}")
         self.data_dir = data_dir
         self.training = training
         self.subject_name = subject_name or os.path.basename(data_dir)
         self.load_smpl_pos_map = load_smpl_pos_map
         self.load_smpl_nml_map = load_smpl_nml_map
         self.mode = mode
+        self.ray_rng = np.random.default_rng(ray_seed)
 
         self.load_cam_data()
         self.load_smpl_data()
@@ -97,7 +99,7 @@ class MvRgbDatasetBase:
                 self.mano, self.cano_smpl["vertices"])
 
     def _attach_mano(self, item: dict, live_verts: np.ndarray):
-        """Canonical and live MANO items, on testing items
+        """Canonical and live MANO items, on nerf and testing items
         (ref: dataset_mv_rgb.py:231-236)."""
         if self.mano is None:
             return
@@ -280,13 +282,23 @@ class MvRgbDatasetBase:
             color, mask = self.load_color_mask_images(pose_idx, view_idx)
             color = (color / 255.0).astype(np.float32)
             boundary, mask_bin = self.get_boundary_mask(mask)
-            item.update(
-                img_h=color.shape[0], img_w=color.shape[1],
-                extr=self.extr_mats[view_idx],
-                intr=self.intr_mats[view_idx],
-                color_img=color,
-                mask_img=mask_bin.astype(np.float32),
-                boundary_mask_img=boundary.astype(np.float32))
+            if self.mode == "3dgs":
+                item.update(
+                    img_h=color.shape[0], img_w=color.shape[1],
+                    extr=self.extr_mats[view_idx],
+                    intr=self.intr_mats[view_idx],
+                    color_img=color,
+                    mask_img=mask_bin.astype(np.float32),
+                    boundary_mask_img=boundary.astype(np.float32))
+            else:
+                from animatablegaussians_torch.utils import nerf as nerf_util
+                rays = nerf_util.sample_rays_for_training(
+                    color, mask_bin, self.extr_mats[view_idx],
+                    self.intr_mats[view_idx], item["live_bounds"],
+                    unsample_region_mask=boundary, rng=self.ray_rng)
+                item.update(nerf_random=rays,
+                            extr=self.extr_mats[view_idx],
+                            intr=self.intr_mats[view_idx])
         else:
             item.update(
                 img_h=kwargs.get("img_h", 512),
@@ -294,6 +306,7 @@ class MvRgbDatasetBase:
                 intr=kwargs.get("intr", np.array(
                     [[550, 0, 256], [0, 550, 256], [0, 0, 1]], np.float32)),
                 extr=kwargs.get("extr", self._default_front_extr(item)))
+        if self.mode == "nerf" or not training:
             self._attach_mano(item, self.live_vertices[f])
         return item
 

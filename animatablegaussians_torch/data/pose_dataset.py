@@ -31,8 +31,8 @@ from animatablegaussians_torch import config as agt_config
 from animatablegaussians_torch.data import commons
 from animatablegaussians_torch.utils import visualize as viz
 
-_NERF = ("PoseDataset.getitem (the NeRF rays) needs utils/nerf.py of the "
-         "template stack, which is not ported: ROADMAP.md §1 item 5")
+_NERF = ("PoseDataset.getitem (the NeRF rays of a template render) is not "
+         "ported: ROADMAP.md §1 item 5")
 
 # relaxed "normal" hand poses used by hand_pose_type='normal'
 # (ref: dataset_pose.py:233-238; values are the reference's constants)

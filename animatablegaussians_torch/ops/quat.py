@@ -1,8 +1,8 @@
 """Quaternion utilities (w, x, y, z convention), batched over leading axes.
 
-Port of ``animatablegaussians_tpu/ops/quat.py`` (the quaternion helpers and
-``axis_angle_to_mat``): the same formulas in the same order, so the two
-agree to float32 rounding.
+Port of ``animatablegaussians_tpu/ops/quat.py`` (the quaternion helpers,
+``axis_angle_to_mat`` and ``axis_angle_to_quat``): the same formulas in the
+same order, so the two agree to float32 rounding.
 """
 
 from __future__ import annotations
@@ -77,3 +77,14 @@ def axis_angle_to_mat(aa: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
         z * x * C - y * s, z * y * C + x * s, z * z * C + c,
     ], dim=-1)
     return m.reshape(aa.shape[:-1] + (3, 3))
+
+
+def axis_angle_to_quat(aa: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """Axis-angle (..., 3) -> unit quaternion (..., 4) wxyz; below ``eps``
+    the small-angle series of sin(x/2)/x, so a zero rotation gives the
+    identity."""
+    angle = torch.linalg.norm(aa, dim=-1, keepdim=True)
+    half = 0.5 * angle
+    k = torch.where(angle < eps, 0.5 - angle * angle / 48.0,
+                    torch.sin(half) / torch.clamp(angle, min=eps))
+    return torch.cat([torch.cos(half), aa * k], dim=-1)

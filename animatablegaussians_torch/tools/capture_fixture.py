@@ -46,10 +46,11 @@ FULL = dict(img_w=1500, img_h=2048, map_h=1024, n_verts=10475,
 
 
 def write_smplx(path: str, n_verts: int = 120, n_faces: int = 50,
-                seed: int = 0) -> None:
+                seed: int = 0, body_scale: float = 1.0) -> None:
     """An SMPL-X npz with random tensors of the archive's layout: 55
     joints on a shallow random tree, 400 shape and expression directions,
-    posedirs (V, 3, 486), normalized regressor and skinning weights."""
+    posedirs (V, 3, 486), normalized regressor and skinning weights; the
+    template's vertices are ``body_scale`` N(0, 1) metres."""
     J, V = N_JOINTS, n_verts
     rng = np.random.default_rng(seed)
     parents = np.zeros(J, np.int64)
@@ -58,7 +59,8 @@ def write_smplx(path: str, n_verts: int = 120, n_faces: int = 50,
         parents[j] = min(parents[j], j - 1)
     np.savez(
         path,
-        v_template=rng.standard_normal((V, 3)).astype(np.float32),
+        v_template=body_scale * rng.standard_normal((V, 3)).astype(
+            np.float32),
         shapedirs=0.03 * rng.standard_normal((V, 3, 400)).astype(np.float32),
         posedirs=0.01 * rng.standard_normal(
             (V, 3, (J - 1) * 9)).astype(np.float32),
@@ -101,15 +103,25 @@ def write_pose_sequence(path: str, n_frames: int, style: str = "thuman4",
 
 
 def write_mano(mano_dir: str, n_verts_total: int = 120, n_hand: int = 12,
-               seed: int = 3) -> str:
+               seed: int = 3, cano_verts=None) -> str:
     """SMPL-X-hand -> MANO vertex index maps and closed-fan faces in the
     reference layout (ref: dataset/commons.py:8-19): ``n_hand`` random
-    vertices of ``n_verts_total`` per hand and 20 random faces. Returns
-    ``mano_dir``."""
+    vertices of ``n_verts_total`` per hand and 20 random faces. With
+    ``cano_verts`` (the canonical SMPL-X vertices, (V, 3)) each hand takes
+    instead the ``n_hand`` vertices nearest the body's extreme in x, the
+    left hand +x and the right -x, where a real hand sits: the template's
+    hand blend then weighs the body's colour 0 away from the hands, as it
+    does on a real subject (with random vertices the hands' boxes span the
+    body). Returns ``mano_dir``."""
     os.makedirs(mano_dir, exist_ok=True)
     rng = np.random.default_rng(seed)
-    lid = rng.choice(n_verts_total, n_hand, replace=False)
-    rid = rng.choice(n_verts_total, n_hand, replace=False)
+    if cano_verts is None:
+        lid = rng.choice(n_verts_total, n_hand, replace=False)
+        rid = rng.choice(n_verts_total, n_hand, replace=False)
+    else:
+        v = np.asarray(cano_verts)
+        lid, rid = (np.argsort(np.linalg.norm(v - v[i], axis=1))[:n_hand]
+                    for i in (np.argmax(v[:, 0]), np.argmin(v[:, 0])))
     np.savez(os.path.join(mano_dir, "smplx_lhand_to_mano_rhand.npz"),
              smpl_vert_id_to_mano=lid.astype(np.int64))
     np.savez(os.path.join(mano_dir, "smplx_rhand_to_mano_rhand.npz"),
@@ -123,9 +135,13 @@ def write_mano(mano_dir: str, n_verts_total: int = 120, n_hand: int = 12,
 def write_capture(data_dir: str, n_frames: int = 4,
                   cams=("cam00", "cam01"), img_w: int = 96, img_h: int = 96,
                   map_h: int = 64, n_verts: int = 120, n_faces: int = 50,
-                  seed: int = 0, pose_map_jitter: float = 0.0) -> str:
+                  seed: int = 0, pose_map_jitter: float = 0.0,
+                  body_scale: float = 1.0) -> str:
     """Write the capture under ``data_dir``; returns the SMPL-X npz's
-    path."""
+    path. ``body_scale`` scales the SMPL-X template (``write_smplx``): at
+    1.0 the body's box reaches behind the cameras 2 m away, at 0.3 it
+    stays in front of them, as a real subject does (the nerf-mode ray
+    draw's projected-box mask then takes ~1 ms instead of ~7 s in cv2)."""
     os.makedirs(data_dir, exist_ok=True)
     rng = np.random.default_rng(seed)
     f = 1.25 * img_w
@@ -161,7 +177,8 @@ def write_capture(data_dir: str, n_frames: int = 4,
              left_hand_pose=np.zeros((n_frames, 45), np.float32),
              right_hand_pose=np.zeros((n_frames, 45), np.float32))
     smpl_path = os.path.join(data_dir, "SMPLX_SYNTH.npz")
-    write_smplx(smpl_path, n_verts=n_verts, n_faces=n_faces)
+    write_smplx(smpl_path, n_verts=n_verts, n_faces=n_faces,
+                body_scale=body_scale)
 
     pm_dir = os.path.join(data_dir, "smpl_pos_map")
     os.makedirs(pm_dir, exist_ok=True)

@@ -10,6 +10,11 @@ its fields) and returns the port ``AvatarNet``'s ``state_dict``, whose
 CNN keys are the reference torch checkpoint's names. Layouts: HWIO conv ->
 (out, in, kh, kw); (in, out) linear -> (out, in); modulated conv ->
 (1, out, in, k, k); NHWC noise -> NCHW.
+
+``template_params_from_jax`` takes the JAX ``TemplateNet.init`` tree
+(``geo_mlp`` and ``tex_mlp`` lists of {weight (in, out), bias, g},
+``density.beta``, ``left_hand`` / ``right_hand`` lists) and returns the
+port ``TemplateNet``'s ``state_dict``.
 """
 
 from __future__ import annotations
@@ -97,4 +102,26 @@ def lpips_from_jax(params_np: dict) -> dict:
         sd[f"convs.{i}.bias"] = _t(cp["bias"])
     for i, lin in enumerate(params_np["lins"]):
         sd[f"lins.{i}"] = _t(lin)
+    return sd
+
+
+def mlp_state(layers, prefix: str) -> dict:
+    """A JAX MLP's layer list -> ``<prefix>layers.<i>.{weight,bias,g}``."""
+    sd = {}
+    for i, lp in enumerate(layers):
+        sd[f"{prefix}layers.{i}.weight"] = _lin_w(lp["weight"])
+        sd[f"{prefix}layers.{i}.bias"] = _t(lp["bias"])
+        if "g" in lp:
+            sd[f"{prefix}layers.{i}.g"] = _t(lp["g"])
+    return sd
+
+
+def template_params_from_jax(params_np: dict) -> dict:
+    """JAX TemplateNet params (numpy leaves) -> port TemplateNet
+    state_dict."""
+    sd = {"density.beta": _t(params_np["density"]["beta"])}
+    sd.update(mlp_state(params_np["geo_mlp"], "geo_mlp."))
+    sd.update(mlp_state(params_np["tex_mlp"], "tex_mlp."))
+    for hand in ("left_hand", "right_hand"):
+        sd.update(mlp_state(params_np[hand], f"{hand}.tex_mlp."))
     return sd

@@ -2,7 +2,8 @@
 the avatar train step, and the CNN's separable FIRs through their kernel in
 the render (with mean hands and pose-map regeneration) and in the B = 2
 batched train step and its scan; then the two entry points a user runs,
-training and animation, on a full-width capture on disk.
+training and animation, on a full-width capture on disk; last, the template
+stack that prepares a subject, on a capture of its own.
 
     python3 chip_smoke.py
 
@@ -128,6 +129,27 @@ itself. Phases, each printing a line, any failure exiting non-zero:
                 and PCA-fit seconds, ms/frame with host I/O beside phase
                 7's render_sequence, peak memory. The capture is removed
                 at the end.
+ 17. template - the template stack in the user's order, on a full-width
+                capture of its own under build/ (2 cameras x 2 frames of
+                1500x2048, SMPL-X's real shapes with the template scaled
+                by 0.3, the MANO maps) and configs/avatarrex_zzr/
+                template.yaml (with_hand, use_root_finding, 1024 rays x 64
+                samples): tools/gen_weight_volume at 128^3 (stage
+                seconds, peak memory; the card against the CPU path at
+                16^3); main_template_torch.main for 2 warm-up and 10 timed
+                iterations (launch counters reset just before: no kernel
+                of the port may launch; finite losses; ms/iteration with
+                host I/O, peak memory), the export at (256, 256, 128)
+                (SDF and marching-cubes seconds, the mesh's size); the bare
+                step, the device's busy share of one step, its stages'
+                device ms (the body's and the hands' nearest-face
+                searches, near_far_smpl, the root finding, the MLPs'
+                forward and double backward, Adam), one step at 64 rays
+                against the same step on the CPU (loss terms, gradients
+                per group); tools/gen_pos_maps on the exported template
+                (seconds, the map's shape and coverage, init_pts_lbs' row
+                sums, one pose map per frame). The capture is removed at
+                the end.
 
 Each kernel's record carries its bound: the least time the card could take
 for the same work, the larger of the bytes it must move over the memory
@@ -257,6 +279,31 @@ ANIM_COVER_MIN = 0.04
 # about lr whatever its gradient, so an element whose gradient is within
 # that noise of 0 moves either way, and two host loops differ by up to ~4 lr
 SCAN_RTOL_LOSS = 1e-3
+# phase 17: the template stack on a capture of its own (2 cameras a frame),
+# the weight volume's grid, the template CLI's warm-up and timed
+# iterations; the SMPL-X template scaled by 0.3, so that the body's box
+# stays in front of the cameras 2 m away, as a real subject's does
+# (tools/capture_fixture.write_capture)
+TPL_FRAMES, TPL_RES, TPL_WARMUP, TPL_TIMED = 2, 128, 2, 10
+TPL_BODY_SCALE = 0.3
+# the card against the CPU path on the same inputs: the weight volume at
+# 16^3 from 8,192 surface samples (the CPU's nearest-face search takes ~1 s
+# per 1,024 points against SMPL-X's 20,908 faces, so 32^3 and the full
+# 100,000 samples would take minutes), and one template step at 64 rays
+TPL_CHECK_RES, TPL_CHECK_SURFACE, TPL_CHECK_RAYS = 16, 8192, 64
+# per volume, entries off by more than TPL_VOL_ATOL (the two devices' sums
+# over 3 coordinates round differently) may be at most this share: where a
+# grid point's two nearest faces tie within float32 rounding, either face
+# may win, and its weights or its normal's sign come with it
+TPL_VOL_ATOL, TPL_VOL_TIE_SHARE = 1e-5, 5e-3
+# the template step, card against CPU: loss terms relative, each parameter
+# group's gradient relative L2. The gradients are sensitive to rounding
+# (the eikonal term's double backward through softplus(beta = 100), the
+# SMPL-sphere near/far's cancellation b +- sqrt(b^2 - c)): on the CPU the
+# same step in float32 against float64 differs by 2.2e-3 in geo_mlp and
+# 2.0e-3 in density on a small capture; the card against the CPU read
+# <= 5.44e-5 (H100, with the hands at the body's x extremes)
+TPL_RTOL_LOSS, TPL_RTOL_GRAD = 1e-4, 1e-2
 
 
 def phase(name, msg):
@@ -1248,6 +1295,331 @@ def check_animation(name, test, trainer, frames, launches, wall, peak_gb,
             raise AssertionError(f"transform_pca: card vs CPU {rel}")
 
 
+def template_stage_ms(net, step, items, reps: int = 3) -> dict:
+    """Device ms (CUDA events, mean of ``reps`` after one warm-up) of the
+    template step's stages on ``items``' rays: the body's and the hands'
+    nearest-face searches, the SMPL-sphere near/far, the root finding, the
+    MLPs' forward with the eikonal normal and its double backward, and
+    Adam."""
+    from animatablegaussians_torch.ops import geometry3d as g3d
+    from animatablegaussians_torch.ops.root_finding import root_finding
+    from animatablegaussians_torch.utils import nerf as nerf_util
+
+    with torch.no_grad():
+        near, far = net.smpl_guided_near_far(items, items["ray_o"],
+                                             items["ray_d"], items["near"],
+                                             items["far"])
+        pts, _ = nerf_util.sample_pts_on_rays(
+            items["ray_o"], items["ray_d"], near, far, step.n_samples)
+        flat = pts.reshape(-1, 3)
+        mats = net._rigid_hand_mats(items["cano2live_jnt_mats"])
+        w, _ = g3d.calc_blending_weight(
+            flat, items["live_smpl_v"], items["smpl_faces"],
+            items["smpl_lbs"], method="barycentric")
+        inv = torch.linalg.inv(torch.einsum("nj,jxy->nxy", w, mats))
+        cano0 = torch.einsum("nxy,ny->nx", inv[:, :3, :3], flat) + \
+            inv[:, :3, 3]
+        cano, _ = net.transform_live2cano(flat, items)
+    faces = items["mano_face_closed"]
+
+    def hands():
+        for side, f in (("left", torch.flip(faces, [1])), ("right", faces)):
+            g3d.nearest_face(flat, items[f"{side}_live_mano_v"], f)
+
+    def mlp():
+        net.zero_grad(set_to_none=True)
+        out = net.forward_cano_body_nerf(cano, None, compute_grad=True)
+        loss = (out["color"].mean() + out["density"].mean()
+                + ((out["normal"].norm(dim=-1) - 1) ** 2).mean())
+        loss.backward()
+
+    stages = {
+        "nearest_face body": lambda: g3d.nearest_face(
+            flat, items["live_smpl_v"], items["smpl_faces"]),
+        "nearest_face hands": hands,
+        "near_far_smpl": lambda: g3d.near_far_smpl(
+            items["live_smpl_v"], items["ray_o"], items["ray_d"]),
+        "root_finding": lambda: root_finding(
+            net.weight_volume_arr, net.grad_volume_arr, flat, cano0, mats,
+            net.volume.volume_bounds),
+        "MLPs forward + double backward": mlp,
+        "Adam": step.optimizer.step,
+    }
+    return {k: cuda_ms(fn, reps, warmup=1) for k, fn in stages.items()}
+
+
+def template_cpu_check(run, items, vol_path: str) -> None:
+    """One template step's loss terms and gradients on the card against
+    the same step on the CPU: TPL_CHECK_RAYS rays of ``items``, three
+    quarters those that the card's render of all the rays accumulates
+    most, a quarter those it accumulates least (so that the body and its
+    colour have gradients to compare), the run's parameters, draws made on
+    the host."""
+    import copy
+
+    from animatablegaussians_torch.models.template import TemplateNet
+    from animatablegaussians_torch.models.volume import \
+        CanoBlendWeightVolume
+    from animatablegaussians_torch.training import template_trainer as tt
+
+    net_cpu = TemplateNet(run.net.opt, CanoBlendWeightVolume(
+        vol_path, device="cpu"), device="cpu")
+    net_cpu.load_state_dict({k: v.cpu() for k, v in
+                             run.net.state_dict().items()})
+    n, S = TPL_CHECK_RAYS, run.step.n_samples
+    with torch.no_grad():
+        acc = run.net.render_rays(items, items["ray_o"], items["ray_d"],
+                                  items["near"], items["far"],
+                                  n_samples=S)["acc_map"]
+    order = torch.argsort(acc, descending=True, stable=True)
+    pick = torch.sort(torch.cat([order[:n - n // 4],
+                                 order[-(n // 4):]])).values
+    sub = {k: v[pick] if k in tt.RAY_KEYS else v for k, v in items.items()}
+    gen = torch.Generator().manual_seed(5)
+    draws = dict(t_rand=torch.rand((n, S), generator=gen),
+                 view_noise=torch.randn((n * S, 3), generator=gen))
+    res = {}
+    for name, net in (("card", run.net), ("cpu", net_cpu)):
+        d = next(net.parameters()).device
+        st = copy.copy(run.step)
+        st.net = net
+        net.zero_grad(set_to_none=True)
+        t0 = time.perf_counter()
+        total, terms = st.loss({k: v.to(d) for k, v in sub.items()},
+                               draws={k: v.to(d) for k, v in draws.items()})
+        total.backward()
+        groups = {}
+        for pn, p in net.named_parameters():
+            groups.setdefault(pn.split(".")[0], []).append(
+                p.grad.detach().reshape(-1).cpu().double())
+        res[name] = ({k: float(v.detach()) for k, v in terms.items()},
+                     {g: torch.cat(v) for g, v in groups.items()},
+                     time.perf_counter() - t0)
+        net.zero_grad(set_to_none=True)
+    (t_card, g_card, s_card), (t_cpu, g_cpu, s_cpu) = res["card"], res["cpu"]
+    loss_err = {k: abs(t_card[k] - v) / max(abs(v), 1e-30)
+                for k, v in t_cpu.items()}
+    grad_err = {g: float((g_card[g] - v).norm() / v.norm().clamp(min=1e-30))
+                for g, v in g_cpu.items()}
+    norms = {g: float(v.norm()) for g, v in g_cpu.items()}
+    phase("template", f"step at {n} rays x {S} samples (accumulation "
+          f"{float(acc[pick].min()):.3f}-{float(acc[pick].max()):.3f}), "
+          f"card against CPU ({s_card:.2f} s / {s_cpu:.2f} s): loss terms "
+          + ", ".join(
+              f"{k} {t_cpu[k]:.6f} (rel {e:.1e})"
+              for k, e in loss_err.items())
+          + f" (limit {TPL_RTOL_LOSS:g}); gradients " + ", ".join(
+              f"{g} {e:.2e} (norm {norms[g]:.3e})"
+              for g, e in grad_err.items())
+          + f" (limit {TPL_RTOL_GRAD:g})")
+    finite = all(math.isfinite(v) for v in t_card.values()) and all(
+        bool(torch.isfinite(v).all()) for v in g_card.values())
+    # the body's groups must have gradients to compare; the hands' only
+    # where a ray reaches them
+    moved = all(norms[g] > 0 for g in ("geo_mlp", "tex_mlp", "density"))
+    if not (finite and moved and max(loss_err.values()) <= TPL_RTOL_LOSS
+            and max(grad_err.values()) <= TPL_RTOL_GRAD):
+        raise AssertionError("template step: card disagrees with the CPU")
+
+
+def template_phase(card: str, records: list) -> None:
+    """Phase 17: the template stack as a user runs it on a full-width
+    capture of its own (see the module docstring); adds each kernel's
+    launches in the template CLI's run (none) to its record as
+    ``template_launches``."""
+    import glob
+
+    import yaml
+
+    import main_template_torch
+    from animatablegaussians_torch.data import MvRgbDatasetAvatarReX
+    from animatablegaussians_torch.ops import fir
+    from animatablegaussians_torch.ops.rasterize.blend import (
+        blend_backward, blend_tiles)
+    from animatablegaussians_torch.ops.rasterize.expand import expand_pairs
+    from animatablegaussians_torch.tools import capture_fixture as cf
+    from animatablegaussians_torch.tools import gen_pos_maps as gpm
+    from animatablegaussians_torch.tools import gen_weight_volume as gwv
+    from animatablegaussians_torch.training import template_trainer as tt
+    from animatablegaussians_torch.utils import cuda_build, exr
+
+    dev = torch.device("cuda:0")
+    cuda_build.BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="template-", dir=cuda_build.BUILD_ROOT)
+    try:
+        t0 = time.perf_counter()
+        data_dir = os.path.join(tmp, "capture")
+        smpl_path = cf.write_capture(data_dir, n_frames=TPL_FRAMES,
+                                     body_scale=TPL_BODY_SCALE, **cf.FULL)
+        # the hands at the canonical body's x extremes (write_mano)
+        ds = MvRgbDatasetAvatarReX(data_dir, frame_range=[0, 1],
+                                   smpl_model_path=smpl_path)
+        sv = ds.cano_smpl["vertices"]
+        sf = np.asarray(ds.smpl_model.faces, np.int64)
+        sl = ds.smpl_model.data.lbs_weights.cpu().numpy()
+        mano_dir = cf.write_mano(os.path.join(tmp, "mano"),
+                                 n_verts_total=cf.FULL["n_verts"],
+                                 cano_verts=sv)
+        del ds
+        src = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "configs", "avatarrex_zzr", "template.yaml")
+        with open(src) as fp:
+            opt = yaml.safe_load(fp)
+        opt["train"]["data"].update(
+            data_dir=data_dir, used_cam_ids=[0, 1],
+            frame_range=[0, TPL_FRAMES], smpl_model_path=smpl_path,
+            mano_dir=mano_dir)
+        opt["train"]["net_ckpt_dir"] = os.path.join(tmp, "ckpt")
+        cfg = os.path.join(tmp, "template.yaml")
+        with open(cfg, "w") as fp:
+            yaml.safe_dump(opt, fp)
+        phase("template", f"capture written in {time.perf_counter() - t0:.1f}"
+              f" s: {TPL_FRAMES} frames x 2 cameras of {cf.FULL['img_w']}x"
+              f"{cf.FULL['img_h']}, SMPL-X {cf.FULL['n_verts']} vertices / "
+              f"{cf.FULL['n_faces']} faces (x {TPL_BODY_SCALE}), MANO maps "
+              "at the x extremes; "
+              f"configs/avatarrex_zzr/template.yaml: model {opt['model']}, "
+              f"lr {opt['train']['lr']['network']}, loss weights "
+              f"{opt['train']['loss_weight']}")
+
+        # 1. the weight volume at TPL_RES^3 through the tool
+        timings = {}
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        vol_path = gwv.main(["-c", cfg, "--res", str(TPL_RES)],
+                            timings=timings)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        with np.load(vol_path) as f:
+            vol = {k: f[k] for k in f.files}
+        sums = np.abs(vol["diff_weight_volume"].sum(-1) - 1).max()
+        phase("template", f"gen_weight_volume at {TPL_RES}^3 (100,000 "
+              f"surface samples, SMPL-X as the template): {wall:.1f} s, of "
+              "which " + ", ".join(f"{k} {v:.2f} s" for k, v in
+                                   timings.items())
+              + f"; peak {peak:.2f} GiB ({card}); diff weights' sums off 1"
+              f" by at most {sums:.1e}")
+        if not (all(np.isfinite(v).all() for v in vol.values())
+                and vol["diff_weight_volume"].shape == (TPL_RES,) * 3 + (55,)
+                and sums < 1e-4):
+            raise AssertionError("template: bad weight volume")
+        small = {}
+        for d in (dev, "cpu"):
+            t0 = time.perf_counter()
+            small[str(d)] = gwv.build_weight_volume(
+                sv, sf, sv, sf, sl, res=TPL_CHECK_RES,
+                n_surface=TPL_CHECK_SURFACE, device=d)
+            small[str(d) + "_s"] = time.perf_counter() - t0
+        errs = {}
+        for k in ("diff_weight_volume", "ori_weight_volume", "sdf_volume"):
+            e = np.abs(small[str(dev)][k] - small["cpu"][k])
+            e = e.reshape(TPL_CHECK_RES ** 3, -1).max(1)
+            errs[k] = (float(e.max()), float((e > TPL_VOL_ATOL).mean()))
+        phase("template", f"weight volume at {TPL_CHECK_RES}^3 from "
+              f"{TPL_CHECK_SURFACE} samples, card ({small[str(dev) + '_s']:.2f}"
+              f" s) against CPU ({small['cpu_s']:.2f} s): " + ", ".join(
+                  f"{k} max {m:.2e}, share over {TPL_VOL_ATOL:g} {sh:.4f}"
+                  for k, (m, sh) in errs.items())
+              + f" (limit share {TPL_VOL_TIE_SHARE:g})")
+        if max(sh for _, sh in errs.values()) > TPL_VOL_TIE_SHARE:
+            raise AssertionError(f"template: weight volume card vs CPU "
+                                 f"{errs}")
+        del small
+
+        # 2. the template CLI: warm-up and timed iterations, the export
+        counted = (expand_pairs, blend_tiles, blend_backward,
+                   fir.upfirdn2d_fir)
+        for fn in counted:
+            fn.launches = 0
+        stamps, terms = [], []
+
+        def on_step(it, t):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            terms.append({k: float(v) for k, v in t.items()})
+
+        n_iter = TPL_WARMUP + TPL_TIMED
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run = main_template_torch.main(["-c", cfg, "--max_iters",
+                                        str(n_iter)], on_step=on_step)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        launches = {fn.__name__: fn.launches for fn in counted}
+        for r in records:
+            r["template_launches"] = launches[r["name"]]
+        for i, t in enumerate(terms):
+            phase("template", f"iteration {i + 1}: " + ", ".join(
+                f"{k} {v:.6f}" for k, v in t.items()))
+        if len(terms) != n_iter or not all(
+                math.isfinite(v) for t in terms for v in t.values()):
+            raise AssertionError(f"template: {len(terms)} iterations, "
+                                 "a loss not finite")
+        it_ms = [(b - a) * 1e3 for a, b in
+                 zip(stamps[TPL_WARMUP - 1:], stamps[TPL_WARMUP:])]
+        tm = run.timings
+        phase("template", f"main_template_torch --max_iters {n_iter}: "
+              f"{wall:.1f} s; kernel launches {launches} (want 0 each: the "
+              f"template path runs none of the port's kernels); median "
+              f"{statistics.median(it_ms):.2f} ms/iteration with host I/O "
+              f"over {len(it_ms)} after {TPL_WARMUP} warm-up "
+              f"{['%.1f' % t for t in it_ms]}; export at (256, 256, 128): "
+              f"SDF {tm['sdf_s']:.2f} s, marching cubes {tm['mcubes_s']:.2f}"
+              f" s, PLY {tm['write_s']:.2f} s, {run.n_verts} vertices, "
+              f"{run.n_faces} faces; peak {peak:.2f} GiB ({card})")
+        if any(launches.values()) or not run.n_faces > 0:
+            raise AssertionError(f"template: launches {launches}, "
+                                 f"{run.n_faces} faces")
+
+        smpl_lbs = run.dataset.smpl_model.data.lbs_weights.cpu().numpy()
+        items = tt.template_items(run.dataset[0], smpl_lbs, dev)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        bare = wall_ms(lambda: run.step(items, gen), 7)[2:]
+        bare_med = statistics.median(bare)
+        phase("template", f"bare step (items on the card): median "
+              f"{bare_med:.2f} ms over 5 after 2 warm-up "
+              f"{['%.1f' % t for t in bare]}; with host I/O +"
+              f"{100 * (statistics.median(it_ms) / bare_med - 1):.1f}%; at "
+              f"150,000 iterations (main_template.py's default) "
+              f"{150_000 * statistics.median(it_ms) / 3.6e6:.1f} h")
+        busy, rows, owners = device_profile(lambda: run.step(items, gen))
+        print_profile("one template step", busy, rows, owners, bare_med)
+        stages = template_stage_ms(run.net, run.step, items)
+        phase("template", "stages of a step (device ms, CUDA events): "
+              + ", ".join(f"{k} {v:.2f} ({100 * v / bare_med:.1f}%)"
+                          for k, v in stages.items()))
+        template_cpu_check(run, items, os.path.join(
+            data_dir, "cano_weight_volume.npz"))
+        del run, items
+        torch.cuda.empty_cache()
+
+        # 3. the pose maps from the exported template and the volume
+        timings = {}
+        t0 = time.perf_counter()
+        out_dir = gpm.main(["-c", cfg], timings=timings)
+        wall = time.perf_counter() - t0
+        pos = exr.read_exr(os.path.join(out_dir, "cano_smpl_pos_map.exr"))
+        lbs = np.load(os.path.join(out_dir, "init_pts_lbs.npy"))
+        maps = sorted(glob.glob(os.path.join(out_dir, "0*.exr")))
+        first = exr.read_exr(maps[0]) if maps else None
+        covered = float((np.linalg.norm(pos, axis=-1) > 0).mean())
+        row = float(np.abs(lbs.sum(1) - 1).max()) if len(lbs) else math.inf
+        phase("template", f"gen_pos_maps: {wall:.1f} s, of which " + ", ".join(
+            f"{k} {v:.2f} s" for k, v in timings.items())
+            + f"; position map {pos.shape}, {100 * covered:.2f}% covered; "
+            f"init_pts_lbs {lbs.shape}, row sums off 1 by at most {row:.1e};"
+            f" {len(maps)} pose maps "
+            f"{None if first is None else first.shape}")
+        if not (pos.shape == (1024, 2048, 3) and covered > 0
+                and lbs.shape == (int((np.linalg.norm(pos, axis=-1) > 0)
+                                      .sum()), 55) and row < 1e-4
+                and len(maps) == TPL_FRAMES
+                and first.shape == (512, 1024, 3)):
+            raise AssertionError("template: bad pose maps")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1905,6 +2277,10 @@ def main() -> int:
                       records)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+    # -- 17. the template stack on a capture of its own -------------------
+    torch.cuda.empty_cache()
+    template_phase(card, records)
 
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

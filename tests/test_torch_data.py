@@ -247,12 +247,13 @@ def test_dataset_items_match_jax(capture, route):
 
 
 def test_dataset_unported_routes_raise(capture, tmp_path):
-    """The routes of the template stack stay refused: the dataset's nerf
-    mode and PoseDataset.getitem's NeRF rays."""
+    """PoseDataset.getitem's NeRF rays stay refused, and a dataset mode
+    other than 3dgs and nerf is refused (the nerf mode is ported and held
+    in tests/test_torch_template_tools.py)."""
     from animatablegaussians_torch.data import PoseDataset
     _, tds = capture
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmv.MvRgbDatasetAvatarReX(tds.data_dir, mode="nerf")
+    with pytest.raises(ValueError, match="mode"):
+        tmv.MvRgbDatasetAvatarReX(tds.data_dir, mode="sdf")
     path = cf.write_pose_sequence(str(tmp_path / "thuman4_pose_00.npz"), 2)
     poses = PoseDataset(path, smpl_model_path=os.path.join(
         tds.data_dir, "SMPLX_SYNTH.npz"))
