@@ -15,6 +15,9 @@ CNN keys are the reference torch checkpoint's names. Layouts: HWIO conv ->
 (``geo_mlp`` and ``tex_mlp`` lists of {weight (in, out), bias, g},
 ``density.beta``, ``left_hand`` / ``right_hand`` lists) and returns the
 port ``TemplateNet``'s ``state_dict``.
+
+``lpips_from_jax`` and ``inception_from_jax`` carry the LPIPS and the
+Inception trunk's weights across.
 """
 
 from __future__ import annotations
@@ -124,4 +127,16 @@ def template_params_from_jax(params_np: dict) -> dict:
     sd.update(mlp_state(params_np["tex_mlp"], "tex_mlp."))
     for hand in ("left_hand", "right_hand"):
         sd.update(mlp_state(params_np[hand], f"{hand}.tex_mlp."))
+    return sd
+
+
+def inception_from_jax(params_np: dict) -> dict:
+    """JAX ``eval/fid.InceptionV3Features.params`` (``{name: {w (HWIO),
+    b}}``, BatchNorm folded; numpy leaves) -> the port
+    ``eval.fid.InceptionV3Features`` state dict (``<name>.weight`` (out,
+    in, kh, kw), ``<name>.bias``)."""
+    sd = {}
+    for name, p in params_np.items():
+        sd[f"{name}.weight"] = _conv_w(p["w"])
+        sd[f"{name}.bias"] = _t(p["b"])
     return sd

@@ -2,8 +2,9 @@
 the avatar train step, and the CNN's separable FIRs through their kernel in
 the render (with mean hands and pose-map regeneration) and in the B = 2
 batched train step and its scan; then the two entry points a user runs,
-training and animation, on a full-width capture on disk; last, the template
-stack that prepares a subject, on a capture of its own.
+training and animation, on a full-width capture on disk, and the scoring
+of that capture's frames; last, the template stack that prepares a
+subject, on a capture of its own.
 
     python3 chip_smoke.py
 
@@ -150,6 +151,35 @@ itself. Phases, each printing a line, any failure exiting non-zero:
                 (seconds, the map's shape and coverage, init_pts_lbs' row
                 sums, one pose map per frame). The capture is removed at
                 the end.
+ 18. eval     - runs after phase 16, on phase 15's capture: its 3 frames
+                rendered from each of its 2 cameras by
+                ``main_avatar_torch.main(["-c", cfg, "-m", "test"])``
+                (``test.data`` the capture, view_setting camera,
+                render_view_idx 0 and 1, phase 16's checkpoint: phase
+                15's epoch_latest with the position and other heads'
+                outputs zeroed; 1500x2048 JPEGs, each covering at least
+                ANIM_COVER_MIN of its frame), then scored through the
+                evaluation CLI's functions
+                (eval/comparison.compare_methods against the capture's
+                frames and box mattes: PSNR and SSIM in float64 on the
+                card, 512^2 mask crops, LPIPS with random VGG16 weights;
+                eval/fid.compute_fid over the crops with a random
+                Inception trunk from a seeded generator, not a valid
+                metric); launch counters reset just before the scoring (no
+                kernel of the port may launch: ``eval_launches`` 0 in each
+                record); each frame's PSNR against a numpy PSNR of the
+                same render and ground truth (and a swapped camera pairing
+                scoring otherwise); the card against the CPU on the same
+                frames and weights (PSNR, SSIM, LPIPS, the Inception
+                features, the Fréchet distance of the same statistics, and
+                the FID from each device's own features, beside the FID of
+                a planted fault: the crops resized without antialiasing);
+                seconds a frame of each stage (utils/profiling.
+                StageTimer), the trunk's ms/image at batch 8 over 64 seeded
+                512^2 images, one batch's kernels summed from a
+                utils/profiling.trace Chrome trace by trace_report against
+                its CUDA-event time, the Fréchet distance's seconds at 2048
+                dimensions, peak memory.
 
 Each kernel's record carries its bound: the least time the card could take
 for the same work, the larger of the bytes it must move over the memory
@@ -304,6 +334,33 @@ TPL_VOL_ATOL, TPL_VOL_TIE_SHARE = 1e-5, 5e-3
 # 2.0e-3 in density on a small capture; the card against the CPU read
 # <= 5.44e-5 (H100, with the hands at the body's x extremes)
 TPL_RTOL_LOSS, TPL_RTOL_GRAD = 1e-4, 1e-2
+# phase 18: phase 15's capture rendered from its own cameras (in
+# calibration order, tools/capture_fixture.write_capture's names) and
+# scored at the reference protocol's 512^2 crops; the Inception trunk timed
+# on this many seeded images of this side at the scorer's batch
+EVAL_CAMS, EVAL_PATCH = ("cam00", "cam01"), 512
+EVAL_TIMED_IMAGES, EVAL_TIMED_SIDE, EVAL_BATCH = 64, 512, 8
+# the card against the CPU on the same frames: PSNR and SSIM relative
+# (float64 on both devices, sums in another order); LPIPS absolute (float32
+# VGG16 convolutions of cuDNN and the CPU, TF32 off); the Inception
+# features relative to the largest feature (float32 through 94
+# convolutions); the Fréchet distance of the same float64 statistics
+# relative (two eigensolvers: cuSOLVER's and LAPACK's)
+EVAL_RTOL_F64, EVAL_ATOL_LPIPS = 1e-9, 1e-4
+EVAL_RTOL_FEATURES, EVAL_RTOL_FRECHET = 1e-4, 1e-6
+# the FID end to end, each device's features through its own statistics
+# and distance, relative. The two devices' float32 convolutions put the
+# features 1.0e-6 to 1.1e-6 apart (relative to the largest feature), and
+# the distance carries that at 1.7e-6 to 2.2e-6 (H100, three runs), so
+# 1e-6 cannot hold here; the limit is about 5 times the largest reading.
+# A planted fault, the crops resized without antialiasing (the trap of
+# fid.resize_299), must move the FID by more than EVAL_FAULT_MIN times it
+EVAL_RTOL_FID, EVAL_FAULT_MIN = 1e-5, 10
+# one Inception batch's kernels summed from a torch.profiler trace
+# (utils/profiling.trace_report) over the batch's CUDA-event time: the
+# kernels cannot take longer than the span that holds them (up to the two
+# clocks' noise), and the launch gaps between them are a small share
+EVAL_TRACE_SHARE = (0.5, 1.1)
 
 
 def phase(name, msg):
@@ -1422,6 +1479,338 @@ def template_cpu_check(run, items, vol_path: str) -> None:
         raise AssertionError("template step: card disagrees with the CPU")
 
 
+def eval_trace_check(inception, batch, batch_ms: float, tmp: str) -> str:
+    """One Inception batch under ``utils/profiling.trace``: its kernels,
+    summed by ``trace_report``, must come to EVAL_TRACE_SHARE of the
+    batch's CUDA-event time ``batch_ms``, with convolutions among them
+    (cuDNN's implicit-GEMM, Winograd and FFT kernels, by name); returns
+    the reading."""
+    import re
+
+    from animatablegaussians_torch.utils import profiling
+
+    d = os.path.join(tmp, "eval_trace")
+    with profiling.trace(d):
+        profiling.sync(inception.features(batch))
+    report = profiling.trace_report(d, top=10 ** 6)
+    if report.startswith("no "):
+        raise AssertionError(f"eval trace: {report}")
+    rows = [ln.split(None, 4) for ln in report.splitlines()]
+    total = sum(float(r[0]) for r in rows)
+    conv_names = r"conv|fprop|xmma|implicit_gemm|cudnn|winograd|fft"
+    conv = sum(float(r[0]) for r in rows
+               if re.search(conv_names, r[4], re.I))
+    reading = (f"one batch of {batch.shape[0]} under profiling.trace: "
+               f"trace_report sums {sum(int(r[2]) for r in rows)} kernel "
+               f"events of {len(rows)} names to {total:.3f} ms against "
+               f"{batch_ms:.3f} ms of CUDA events (share "
+               f"{total / batch_ms:.3f}, limits {EVAL_TRACE_SHARE}), "
+               f"convolution kernels {conv:.3f} ms; the longest: "
+               + "; ".join(f"{r[4][:60]} {float(r[0]):.3f} ms"
+                           for r in rows[:3]))
+    if not (EVAL_TRACE_SHARE[0] <= total / batch_ms <= EVAL_TRACE_SHARE[1]
+            and conv > 0):
+        raise AssertionError(f"eval trace: {reading}")
+    return reading
+
+
+def eval_phase(card: str, tmp: str, opt: dict, records: list) -> None:
+    """Phase 18: phase 15's capture rendered from each of its cameras by
+    ``main_avatar_torch -m test`` with phase 16's checkpoint, then scored
+    by the evaluation CLI's functions on the card and on the CPU (see the
+    module docstring); adds each kernel's launches while scoring (none) to
+    its record as ``eval_launches``."""
+    import cv2
+    import torch.nn.functional as F
+    import yaml
+
+    import main_avatar_torch
+    from animatablegaussians_torch.eval import comparison
+    from animatablegaussians_torch.eval import fid
+    from animatablegaussians_torch.ops import fir
+    from animatablegaussians_torch.ops.rasterize.blend import (
+        blend_backward, blend_tiles)
+    from animatablegaussians_torch.ops.rasterize.expand import expand_pairs
+    from animatablegaussians_torch.tools import capture_fixture as cf
+    from animatablegaussians_torch.training import lpips as tlp
+    from animatablegaussians_torch.utils.profiling import StageTimer
+
+    counted = (expand_pairs, blend_tiles, blend_backward, fir.upfirdn2d_fir)
+    full_w, full_h = cf.FULL["img_w"], cf.FULL["img_h"]
+    data = opt["train"]["data"]
+    frames = list(range(DRIVER_FRAMES))
+    # phase 16's checkpoint: phase 15's raw epoch_latest covers about 0.5%
+    # of a frame, too little to score
+    ckpt = os.path.join(tmp, "animate_ckpt")
+    if not os.path.exists(ckpt):
+        raise AssertionError(f"eval: no checkpoint {ckpt} from phase 16")
+
+    # the frames to score: the capture's own poses seen by its cameras
+    for fn in counted:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    renders = {}
+    for i, cam in enumerate(EVAL_CAMS):
+        test = dict(data=dict(data_dir=data["data_dir"],
+                              frame_range=[0, DRIVER_FRAMES],
+                              smpl_model_path=data["smpl_model_path"]),
+                    view_setting="camera", render_view_idx=i,
+                    img_scale=1.0, prev_ckpt=ckpt,
+                    output_dir=os.path.join(tmp, f"eval_{cam}"))
+        cfg = os.path.join(tmp, f"eval_{cam}.yaml")
+        with open(cfg, "w") as fp:
+            yaml.safe_dump(dict(opt, test=test), fp)
+        main_avatar_torch.main(["-c", cfg, "-m", "test"])
+        renders[cam] = os.path.join(test["output_dir"], "rgb_map")
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counted}
+    n = len(EVAL_CAMS) * len(frames)
+    phase("eval", f"main_avatar_torch -m test, view_setting camera, "
+          f"render_view_idx 0 and 1, phase 16's checkpoint: {n} frames in "
+          f"{time.perf_counter() - t0:.1f} s; kernel launches {launches}")
+    if not (launches["expand_pairs"] == launches["blend_tiles"] == n
+            and launches["blend_backward"] == 0
+            and launches["upfirdn2d_fir"] > 0):
+        raise AssertionError(f"eval renders: launches {launches}")
+    for cam in EVAL_CAMS:
+        for f in frames:
+            img = cv2.imread(os.path.join(renders[cam], "%08d.jpg" % f))
+            if img is None or img.shape != (full_h, full_w, 3):
+                raise AssertionError(f"eval: frame {cam}/{f} is "
+                                     f"{None if img is None else img.shape}")
+    # each frame's share of pixels with alpha >= 1/255 (run_test's mask_map
+    # PNG holds floor(255 alpha))
+    cover = [float((cv2.imread(os.path.join(os.path.dirname(renders[cam]),
+                                            "mask_map", "%08d.png" % f),
+                               cv2.IMREAD_UNCHANGED) >= 1).mean())
+             for cam in EVAL_CAMS for f in frames]
+    phase("eval", f"pixels with alpha >= 1/255: {min(cover):.4f} to "
+          f"{max(cover):.4f} of a frame (floor {ANIM_COVER_MIN:g})")
+    if min(cover) < ANIM_COVER_MIN:
+        raise AssertionError(f"eval: frames too faint to score, {cover}")
+
+    def plain_psnr(render, cam, f):
+        """numpy's PSNR of a render against camera ``cam``'s frame ``f``,
+        whitened outside its matte, read as compare_methods reads them."""
+        def rd(path):
+            img = cv2.imread(path, cv2.IMREAD_UNCHANGED)
+            return (img / 255.0).astype(np.float32).astype(np.float64)
+        gt = rd(os.path.join(data["data_dir"], cam, "%08d.jpg" % f))
+        mask = rd(os.path.join(data["data_dir"], cam, "mask", "pha",
+                               "%08d.jpg" % f)) > 0.5
+        gt[~(mask[..., 0] if mask.ndim == 3 else mask)] = 1.0
+        return float(10.0 * np.log10(1.0 / np.mean((rd(render) - gt) ** 2)))
+
+    def score(device, lp, timer=None, crops=None):
+        """Per-frame [psnr, ssim, lpips] of every camera and frame."""
+        out = {}
+        for cam in EVAL_CAMS:
+            for f in frames:
+                m = comparison.compare_methods(
+                    {"ours": renders[cam]},
+                    os.path.join(data["data_dir"], cam),
+                    os.path.join(data["data_dir"], cam, "mask", "pha"), [f],
+                    patch_size=EVAL_PATCH, lpips_params=lp,
+                    crop_out_dir=crops and os.path.join(crops, cam),
+                    device=device, timer=timer)["ours"]
+                if m.count != 1:
+                    raise AssertionError(f"eval: {cam}/{f} not scored")
+                out[(cam, f)] = [m.psnr, m.ssim, m.lpips]
+        return out
+
+    lp_weights = tlp.init_random(0)
+    lp_card = tlp.LPIPS(lp_weights, device="cuda")
+    crops = os.path.join(tmp, "eval_crops")
+    timer = StageTimer()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counted:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    card_scores = score("cuda", lp_card, timer, crops)
+    score_s = time.perf_counter() - t0
+    # the FID's directories: both cameras' crops
+    fid_dirs = {}
+    for sub in ("ours", "gt"):
+        fid_dirs[sub] = os.path.join(crops, "all", sub)
+        os.makedirs(fid_dirs[sub])
+        for cam in EVAL_CAMS:
+            for name in os.listdir(os.path.join(crops, cam, sub)):
+                shutil.copy(os.path.join(crops, cam, sub, name),
+                            os.path.join(fid_dirs[sub], f"{cam}_{name}"))
+    inception = fid.InceptionV3Features.init_random(
+        torch.Generator().manual_seed(18), device="cuda")
+    with timer.stage("fid"):
+        fid_card = fid.compute_fid(fid_dirs["ours"], fid_dirs["gt"],
+                                   inception, batch=EVAL_BATCH)
+    launches = {fn.__name__: fn.launches for fn in counted}
+    for rec in records:
+        rec["eval_launches"] = launches[rec["name"]]
+    phase("eval", f"kernel launches while scoring: {launches} (the scorer "
+          "reaches no kernel of the port)")
+    if any(launches.values()):
+        raise AssertionError(f"eval: the scorer launched {launches}")
+    mean = [statistics.mean(v[i] for v in card_scores.values())
+            for i in range(3)]
+    phase("eval", f"compare_methods on the card, {n} frames of "
+          f"{full_w}x{full_h} at {EVAL_PATCH}^2 crops: PSNR {mean[0]:.6f}, "
+          f"SSIM {mean[1]:.6f}, LPIPS {mean[2]:.6f} (random VGG16 "
+          f"weights, not a valid metric) in {score_s:.2f} s; per frame " +
+          ", ".join(f"{c}/{f} {v[0]:.4f}/{v[1]:.4f}/{v[2]:.4f}"
+                    for (c, f), v in card_scores.items()))
+    phase("eval", f"FID over the {len(os.listdir(fid_dirs['ours']))} + "
+          f"{len(os.listdir(fid_dirs['gt']))} crops: {fid_card:.6f} "
+          "(random trunk, not a valid metric)")
+    if not all(math.isfinite(x) for v in card_scores.values() for x in v) \
+            or not math.isfinite(fid_card):
+        raise AssertionError(f"eval: non-finite scores {card_scores}, "
+                             f"FID {fid_card}")
+    # each frame scored against its own camera's ground truth: the scorer's
+    # PSNR against numpy's on the same pairing, and against the other
+    # camera's frame, which must read otherwise
+    psnr_err, swap_gap = 0.0, math.inf
+    for (cam, f), v in card_scores.items():
+        other = EVAL_CAMS[1 - EVAL_CAMS.index(cam)]
+        render = os.path.join(renders[cam], "%08d.jpg" % f)
+        right = plain_psnr(render, cam, f)
+        psnr_err = max(psnr_err, abs(v[0] - right) / right)
+        swap_gap = min(swap_gap,
+                       abs(v[0] - plain_psnr(render, other, f)) / right)
+    distinct = len({v[0] for v in card_scores.values()})
+    phase("eval", f"each frame's PSNR against numpy's on the same pairing: "
+          f"rel {psnr_err:.2e} (limit {EVAL_RTOL_F64:g}); against the other "
+          f"camera's frame at least {swap_gap:.2e} apart (must exceed "
+          f"{1e3 * EVAL_RTOL_F64:g}); {distinct} distinct PSNRs in {n} "
+          "frames")
+    if not (psnr_err <= EVAL_RTOL_F64 and swap_gap > 1e3 * EVAL_RTOL_F64
+            and distinct > 1):
+        raise AssertionError("eval: the scores are not those of the frames'"
+                             " own pairings")
+    for cam in EVAL_CAMS:
+        for sub in ("ours", "gt"):
+            for f in frames:
+                c = cv2.imread(os.path.join(crops, cam, sub, "%08d.png" % f))
+                if c is None or c.shape != (EVAL_PATCH, EVAL_PATCH, 3):
+                    raise AssertionError(f"eval: crop {cam}/{sub}/{f}")
+
+    # the card against the CPU: the same frames, weights and features
+    cpu_scores = score("cpu", tlp.LPIPS(lp_weights, device="cpu"))
+    errs = [max(abs(card_scores[k][i] - cpu_scores[k][i])
+                / (abs(cpu_scores[k][i]) if i < 2 else 1.0)
+                for k in card_scores) for i in range(3)]
+    inception_cpu = fid.InceptionV3Features.init_random(
+        torch.Generator().manual_seed(18), device="cpu")
+    feats, feat_err = {}, 0.0
+    for sub, d in fid_dirs.items():
+        a = fid.features_of_images(inception, fid.read_rgb_dir(d),
+                                   EVAL_BATCH)
+        b = fid.features_of_images(inception_cpu, fid.read_rgb_dir(d),
+                                   EVAL_BATCH)
+        feat_err = max(feat_err, float((a.cpu() - b).abs().max()
+                                       / b.abs().max()))
+        feats[sub] = (a, b)
+    stats = {sub: fid.gaussian_stats(a, "cuda") for sub, (a, _) in
+             feats.items()}
+    fd_card = fid.frechet_distance(*stats["ours"], *stats["gt"],
+                                   device="cuda")
+    fd_cpu = fid.frechet_distance(*stats["ours"], *stats["gt"],
+                                  device="cpu")
+    fd_err = abs(fd_card - fd_cpu) / abs(fd_cpu)
+    fd_cpu_feats = fid.frechet_distance(
+        *fid.gaussian_stats(feats["ours"][1], "cpu"),
+        *fid.gaussian_stats(feats["gt"][1], "cpu"), device="cpu")
+    fid_rel = abs(fd_cpu_feats - fid_card) / fid_card
+    # the planted fault: the crops of the renders resized to 299 without
+    # antialiasing, through the same trunk on the card
+    with torch.no_grad():
+        x = torch.from_numpy(np.stack(list(fid.read_rgb_dir(
+            fid_dirs["ours"]))).astype(np.float32)).cuda()
+        x = F.interpolate(x.permute(0, 3, 1, 2), size=(299, 299),
+                          mode="bilinear", align_corners=False)
+        fault = inception.trunk(x * 2.0 - 1.0)
+    fd_fault = fid.frechet_distance(*fid.gaussian_stats(fault, "cuda"),
+                                    *stats["gt"], device="cuda")
+    fault_rel = abs(fd_fault - fid_card) / fid_card
+    del x, fault
+    phase("eval", f"card vs CPU on the same frames: PSNR rel "
+          f"{errs[0]:.2e}, SSIM rel {errs[1]:.2e} (limit {EVAL_RTOL_F64:g}),"
+          f" LPIPS abs {errs[2]:.2e} (limit {EVAL_ATOL_LPIPS:g}); "
+          f"Inception features max |card - CPU| / max |CPU| {feat_err:.2e} "
+          f"(limit {EVAL_RTOL_FEATURES:g}); Fréchet distance of the card's "
+          f"features on the card {fd_card:.9f}, on the CPU {fd_cpu:.9f} "
+          f"(rel {fd_err:.2e}, limit {EVAL_RTOL_FRECHET:g}; compute_fid "
+          f"read {fid_card:.9f}); the FID end to end, each device's own "
+          f"features, statistics and distance: card {fid_card:.9f}, CPU "
+          f"{fd_cpu_feats:.9f} (rel {fid_rel:.2e}, limit "
+          f"{EVAL_RTOL_FID:g}); planted fault, the renders' crops resized "
+          f"without antialiasing: {fd_fault:.6f} (rel {fault_rel:.2e}, must "
+          f"exceed {EVAL_FAULT_MIN * EVAL_RTOL_FID:g})")
+    if not (errs[0] <= EVAL_RTOL_F64 and errs[1] <= EVAL_RTOL_F64
+            and errs[2] <= EVAL_ATOL_LPIPS
+            and feat_err <= EVAL_RTOL_FEATURES
+            and fd_err <= EVAL_RTOL_FRECHET
+            and abs(fd_card - fid_card) <= EVAL_RTOL_FRECHET * fid_card
+            and fid_rel <= EVAL_RTOL_FID
+            and fault_rel > EVAL_FAULT_MIN * EVAL_RTOL_FID):
+        raise AssertionError("eval: the card and the CPU disagree")
+    del feats, stats
+
+    # stage times: seconds a frame, the trunk at batch EVAL_BATCH, the
+    # Fréchet distance at 2048 dimensions
+    per_frame = {k: timer.totals[k] / n
+                 for k in ("read", "psnr", "ssim", "crop", "lpips")}
+    phase("eval", "seconds a frame on the card (StageTimer, "
+          f"{n} frames of {full_w}x{full_h}): " + ", ".join(
+              f"{k} {v:.4f}" for k, v in per_frame.items())
+          + f", total {sum(per_frame.values()):.4f}; compute_fid over "
+          f"{2 * n} crops {timer.totals['fid']:.3f} s ({card})")
+    rng = np.random.default_rng(18)
+    images = rng.random((EVAL_TIMED_IMAGES, EVAL_TIMED_SIDE,
+                         EVAL_TIMED_SIDE, 3), dtype=np.float32)
+    fid.features_of_images(inception, images[:EVAL_BATCH], EVAL_BATCH)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    feats = fid.features_of_images(inception, images, EVAL_BATCH)
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / EVAL_TIMED_IMAGES
+    batch = torch.from_numpy(images[:EVAL_BATCH]).cuda()
+    dev_ms = cuda_ms(lambda: inception.features(batch), reps=8) / EVAL_BATCH
+    phase("eval", eval_trace_check(inception, batch, dev_ms * EVAL_BATCH,
+                                   tmp))
+    # the trunk's convolution FLOPs an image, counted by PyTorch's
+    # dispatcher at this input size (the resize and pools not counted)
+    from torch.utils.flop_counter import FlopCounterMode
+    with FlopCounterMode(display=False) as counter:
+        inception.features(batch[:1])
+    gflop = counter.get_total_flops() / 1e9
+    half = EVAL_TIMED_IMAGES // 2
+    s1 = fid.gaussian_stats(feats[:half], "cuda")
+    s2 = fid.gaussian_stats(feats[half:], "cuda")
+    fid.frechet_distance(*s1, *s2, device="cuda")
+    t_fd = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fd = fid.frechet_distance(*s1, *s2, device="cuda")
+        t_fd.append(time.perf_counter() - t0)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    phase("eval", f"Inception features at batch {EVAL_BATCH} over "
+          f"{EVAL_TIMED_IMAGES} seeded {EVAL_TIMED_SIDE}^2 images: "
+          f"{wall_ms:.3f} ms/image with the host-to-card copies "
+          f"(features_of_images), {dev_ms:.3f} ms/image of device time "
+          f"(CUDA events); its convolutions {gflop:.3f} GFLOP an image "
+          f"(FlopCounterMode), {gflop / dev_ms:.2f} TFLOP/s at that time, "
+          f"{100 * gflop / dev_ms * 1e12 / FP32_OPS_PER_S:.1f}% of the FP32 "
+          f"peak; Fréchet distance at 2048 dimensions "
+          f"{statistics.median(t_fd):.4f} s median of "
+          f"{['%.4f' % t for t in t_fd]} (value {fd:.6f}); peak memory "
+          f"while scoring {peak_gb:.2f} GiB ({card})")
+    if not (math.isfinite(fd) and torch.isfinite(feats).all()):
+        raise AssertionError("eval: non-finite timed features")
+    del inception, inception_cpu, lp_card, batch, feats
+
+
 def template_phase(card: str, records: list) -> None:
     """Phase 17: the template stack as a user runs it on a full-width
     capture of its own (see the module docstring); adds each kernel's
@@ -2266,6 +2655,7 @@ def main() -> int:
 
     # -- 15. the training entry point on a full-width capture --------------
     # -- 16. the animation entry point on that capture and checkpoint -----
+    # -- 18. that capture's frames rendered and scored ---------------------
     del net, train_items, items, titems, batch, lpips, step_b, tkw, kw
     torch.cuda.empty_cache()
     cuda_build.BUILD_ROOT.mkdir(parents=True, exist_ok=True)
@@ -2275,6 +2665,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         animate_phase(card, tmp, driver_opt, statistics.median(t_seq),
                       records)
+        torch.cuda.empty_cache()
+        eval_phase(card, tmp, driver_opt, records)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
