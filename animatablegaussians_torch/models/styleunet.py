@@ -28,7 +28,7 @@ from torch import nn
 
 from animatablegaussians_torch.ops.upfirdn2d import (
     _downsample, _fused_leaky_relu, _inverse_haar_transform, _upfirdn2d,
-    _wavelet_upsample, make_kernel)
+    _upsample, _wavelet_downsample, _wavelet_upsample, make_kernel)
 
 BLUR_KERNEL = (1, 3, 3, 1)
 
@@ -132,15 +132,24 @@ class ConvBlock(nn.Module):
 
 
 class FromRGB(nn.Module):
-    """FromRGB with downsample, no wavelet (ref: dual_styleunet.py:442-470)."""
+    """FromRGB (ref: dual_styleunet.py:442-470): the image is first
+    downsampled (``downsample``), by a FIR or in the Haar domain
+    (``use_wt``); a 1x1 ConvLayer of it is added to ``skip``. Returns
+    (image, features)."""
 
-    def __init__(self, in_ch, out_ch, generator=None):
+    def __init__(self, in_ch, out_ch, downsample=True, use_wt=False,
+                 generator=None):
         super().__init__()
+        self.downsample, self.use_wt = downsample, use_wt
         self.conv = conv_layer(in_ch, out_ch, 1, generator=generator)
 
-    def forward(self, img, skip, plain=False):
-        img = _downsample(img, make_kernel(BLUR_KERNEL), plain=plain)
-        return img, self.conv(img) + skip
+    def forward(self, img, skip=None, plain=False):
+        if self.downsample and self.use_wt:
+            img = _wavelet_downsample(img, BLUR_KERNEL, plain=plain)
+        elif self.downsample:
+            img = _downsample(img, make_kernel(BLUR_KERNEL), plain=plain)
+        out = self.conv(img)
+        return img, out if skip is None else out + skip
 
 
 class ModulatedConv2d(nn.Module):
@@ -205,19 +214,24 @@ class StyledConv(nn.Module):
 
 
 class ToRGB(nn.Module):
-    """Wavelet-domain ToRGB: out_ch = 4 x image channels."""
+    """ToRGB: a 1x1 modulated conv plus the upsampled skip, in the Haar
+    domain (``use_wt``: out_ch = 4 x image channels) or in pixel space."""
 
-    def __init__(self, in_ch, style_dim, out_ch, generator=None):
+    def __init__(self, in_ch, style_dim, out_ch, use_wt=True,
+                 generator=None):
         super().__init__()
         self.conv = ModulatedConv2d(in_ch, out_ch, 1, style_dim,
                                     demodulate=False, generator=generator)
         self.bias = nn.Parameter(torch.zeros(1, out_ch, 1, 1))
+        self.use_wt = use_wt
 
     def forward(self, x, style, skip=None, plain=False):
         out = self.conv(x, style) + self.bias
-        if skip is not None:
-            out = out + _wavelet_upsample(skip, BLUR_KERNEL, plain=plain)
-        return out
+        if skip is None:
+            return out
+        if self.use_wt:
+            return out + _wavelet_upsample(skip, BLUR_KERNEL, plain=plain)
+        return out + _upsample(skip, make_kernel(BLUR_KERNEL), plain=plain)
 
 
 def _channels(mult: int):
@@ -226,7 +240,111 @@ def _channels(mult: int):
             1024: 16 * mult, 2048: 16 * mult, 4096: 16 * mult}
 
 
-class DualStyleUNet(nn.Module):
+def mapping(style_dim: int, n_mlp: int, lr_mlp: float, c_dim: int = 0,
+            generator=None) -> nn.Sequential:
+    """The mapping MLP; a conditioning vector of ``c_dim`` joins its
+    input."""
+    dims = [style_dim + c_dim] + [style_dim] * n_mlp
+    return nn.Sequential(PixelNorm(), *[
+        EqualLinear(dims[i], dims[i + 1], lr_mul=lr_mlp, activation=True,
+                    generator=generator) for i in range(n_mlp)])
+
+
+class StyleUNetBase(nn.Module):
+    """The encoder, decoder and noise buffers the StyleUNets share (ref:
+    dual_styleunet.py:680-721), built and run in the reference's order;
+    the subclass sets ``middle_log_size`` first."""
+
+    def _build_encoder(self, cond_ch, enc_in, top, channels, use_wt=False,
+                       generator=None):
+        """``conv_in``, then from level ``top`` down to the middle one a
+        FromRGB, a ConvBlock and a combining conv each (``from_rgbs``,
+        ``cond_convs``, ``comb_convs``)."""
+        g = generator
+        self.conv_in = conv_layer(cond_ch, enc_in, 3, downsample=True,
+                                  generator=g)
+        self.from_rgbs = nn.ModuleList()
+        self.cond_convs = nn.ModuleList()
+        comb = [conv_layer(enc_in * 2, enc_in, 3, generator=g)]
+        in_ch = enc_in
+        for i in range(top, self.middle_log_size - 1, -1):
+            out_c = channels[2 ** i]
+            self.from_rgbs.append(FromRGB(cond_ch, in_ch, use_wt=use_wt,
+                                          generator=g))
+            self.cond_convs.append(ConvBlock(in_ch, out_c, generator=g))
+            comb.append(conv_layer(
+                out_c * 2 if i > self.middle_log_size else out_c, out_c, 3,
+                generator=g))
+            in_ch = out_c
+        self.comb_convs = nn.ModuleList(comb)
+
+    def _build_decoder(self, branches, channels, top, style_dim, rgb_ch,
+                       use_wt=True, generator=None):
+        """Per branch ``convs{b}`` (an upsampling and a plain StyledConv a
+        level, from above the middle one to ``top``, exclusive) and
+        ``to_rgbs{b}``; then the fixed noise buffers, one a layer (ref:
+        dual_styleunet.py:717-721)."""
+        g = generator
+        levels = range(self.middle_log_size + 1, top)
+        chans = [channels[2 ** self.middle_log_size]] + [
+            channels[2 ** i] for i in levels]
+        for branch in branches:
+            convs, rgbs = nn.ModuleList(), nn.ModuleList()
+            for cin, cout in zip(chans, chans[1:]):
+                convs.append(StyledConv(cin, cout, 3, style_dim,
+                                        upsample=True, generator=g))
+                convs.append(StyledConv(cout, cout, 3, style_dim,
+                                        generator=g))
+                rgbs.append(ToRGB(cout, style_dim, rgb_ch, use_wt=use_wt,
+                                  generator=g))
+            setattr(self, f"convs{branch}", convs)
+            setattr(self, f"to_rgbs{branch}", rgbs)
+        self.num_layers = 2 * len(levels)
+        self.noises = nn.Module()
+        for i in range(self.num_layers):
+            res = self._noise_res(i)
+            self.noises.register_buffer(f"noise_{i}",
+                                        _randn((1, 1, res, res), g))
+
+    def _noise_res(self, i: int) -> int:
+        return 2 ** ((i + 2 * (self.middle_log_size + 1)) // 2)
+
+    def _encode(self, img, plain):
+        """The condition features of each encoder level, top first."""
+        cond_out = self.conv_in(img, plain)
+        cond_list = [cond_out]
+        for frgb, cblock in zip(self.from_rgbs, self.cond_convs):
+            img, cond_out = frgb(img, cond_out, plain)
+            cond_out = cblock(cond_out, plain)
+            cond_list.append(cond_out)
+        return cond_list
+
+    def _decode(self, convs, rgbs, style_at, noise, cond_list, plain,
+                view_feature=None):
+        """One branch's ToRGB skip: ``style_at(i)`` the style of layer i
+        (the ToRGB after layer i + 1 takes ``style_at(i + 2)``), noise[i]
+        its NCHW noise map; ``view_feature`` (NHWC) is added after the
+        fifth level."""
+        n_comb = len(self.comb_convs)
+        out = skip = None
+        for stage, rgb in enumerate(rgbs):
+            i = 2 * stage
+            if i == 0:
+                out = self.comb_convs[-1](cond_list[-1])
+            elif i < 2 * n_comb:
+                out = torch.cat([out, cond_list[-1 - i // 2]], dim=1)
+                out = self.comb_convs[-1 - i // 2](out)
+            out = convs[i](out, style_at(i), noise[i], plain)
+            out = convs[i + 1](out, style_at(i + 1), noise[i + 1], plain)
+            skip = rgb(out, style_at(i + 2), skip, plain)
+            if view_feature is not None and i == 8:
+                out = out + F.interpolate(
+                    view_feature.permute(0, 3, 1, 2), size=out.shape[2:],
+                    mode="bilinear", align_corners=False)
+        return skip
+
+
+class DualStyleUNet(StyleUNetBase):
     def __init__(self, inp_size: int, inp_ch: int, out_ch: int,
                  out_size: int, style_dim: int, n_mlp: int,
                  middle_size: int = 8, channel_multiplier: int = 2,
@@ -241,73 +359,12 @@ class DualStyleUNet(nn.Module):
                              f"{4 * middle_size}")
         channels = {k: min(v, channel_max)
                     for k, v in _channels(channel_multiplier).items()}
-
-        self.style = nn.Sequential(PixelNorm(), *[
-            EqualLinear(style_dim, style_dim, lr_mul=lr_mlp, activation=True,
-                        generator=g) for _ in range(n_mlp)])
-
-        enc_in = channels[inp_size // 2]
-        self.conv_in = conv_layer(inp_ch, enc_in, 3, downsample=True,
-                                  generator=g)
-        self.from_rgbs = nn.ModuleList()
-        self.cond_convs = nn.ModuleList()
-        comb = [conv_layer(enc_in * 2, enc_in, 3, generator=g)]
-        in_ch = enc_in
-        for i in range(int(math.log2(inp_size)) - 2,
-                       self.middle_log_size - 1, -1):
-            out_c = channels[2 ** i]
-            self.from_rgbs.append(FromRGB(inp_ch, in_ch, generator=g))
-            self.cond_convs.append(ConvBlock(in_ch, out_c, generator=g))
-            comb.append(conv_layer(
-                out_c * 2 if i > self.middle_log_size else out_c, out_c, 3,
-                generator=g))
-            in_ch = out_c
-        self.comb_convs = nn.ModuleList(comb)
-
-        dec = []
-        in_ch = channels[middle_size]
-        for i in range(self.middle_log_size + 1, self.log_size + 1):
-            dec.append((in_ch, channels[2 ** i]))
-            in_ch = channels[2 ** i]
-        for branch in ("1", "2"):
-            convs, rgbs = nn.ModuleList(), nn.ModuleList()
-            for (cin, cout) in dec:
-                convs.append(StyledConv(cin, cout, 3, style_dim,
-                                        upsample=True, generator=g))
-                convs.append(StyledConv(cout, cout, 3, style_dim,
-                                        generator=g))
-                rgbs.append(ToRGB(cout, style_dim, out_ch * 4, generator=g))
-            setattr(self, f"convs{branch}", convs)
-            setattr(self, f"to_rgbs{branch}", rgbs)
-
-        # fixed noise buffers (ref: dual_styleunet.py:717-721)
-        self.num_layers = (self.log_size - self.middle_log_size) * 2
-        self.noises = nn.Module()
-        for layer_idx in range(self.num_layers):
-            res = (layer_idx + 2 * (self.middle_log_size + 1)) // 2
-            self.noises.register_buffer(
-                f"noise_{layer_idx}", _randn((1, 1, 2 ** res, 2 ** res), g))
-
-    def _decode(self, convs, rgbs, latent, cond_list, view_feature, plain):
-        noise = [getattr(self.noises, f"noise_{i}")
-                 for i in range(self.num_layers)]
-        n_comb = len(self.comb_convs)
-        out = skip = None
-        for stage, rgb in enumerate(rgbs):
-            i = 2 * stage
-            if i == 0:
-                out = self.comb_convs[-1](cond_list[-1])
-            elif i < 2 * n_comb:
-                out = torch.cat([out, cond_list[-1 - i // 2]], dim=1)
-                out = self.comb_convs[-1 - i // 2](out)
-            out = convs[i](out, latent, noise[i], plain)
-            out = convs[i + 1](out, latent, noise[i + 1], plain)
-            skip = rgb(out, latent, skip, plain)
-            if view_feature is not None and i == 8:
-                out = out + F.interpolate(
-                    view_feature.permute(0, 3, 1, 2), size=out.shape[2:],
-                    mode="bilinear", align_corners=False)
-        return _inverse_haar_transform(skip)
+        self.style = mapping(style_dim, n_mlp, lr_mlp, generator=g)
+        self._build_encoder(inp_ch, channels[inp_size // 2],
+                            int(math.log2(inp_size)) - 2, channels,
+                            generator=g)
+        self._build_decoder(("1", "2"), channels, self.log_size + 1,
+                            style_dim, out_ch * 4, generator=g)
 
     def forward(self, style, cond_img, view_feature1=None,
                 view_feature2=None, plain=False):
@@ -315,15 +372,13 @@ class DualStyleUNet(nn.Module):
         view features NHWC. Returns (B, out, out, 2 * out_ch) NHWC:
         [front, back]. ``plain=True`` runs the FIRs' plain version."""
         latent = self.style(style)
-        img = cond_img.permute(0, 3, 1, 2)
-        cond_out = self.conv_in(img, plain)
-        cond_list = [cond_out]
-        for frgb, cblock in zip(self.from_rgbs, self.cond_convs):
-            img, cond_out = frgb(img, cond_out, plain)
-            cond_out = cblock(cond_out, plain)
-            cond_list.append(cond_out)
-        image1 = self._decode(self.convs1, self.to_rgbs1, latent, cond_list,
-                              view_feature1, plain)
-        image2 = self._decode(self.convs2, self.to_rgbs2, latent, cond_list,
-                              view_feature2, plain)
-        return torch.cat([image1, image2], dim=1).permute(0, 2, 3, 1)
+        noise = [getattr(self.noises, f"noise_{i}")
+                 for i in range(self.num_layers)]
+        cond_list = self._encode(cond_img.permute(0, 3, 1, 2), plain)
+        images = [_inverse_haar_transform(self._decode(
+            convs, rgbs, lambda i: latent, noise, cond_list, plain, view))
+            for convs, rgbs, view in ((self.convs1, self.to_rgbs1,
+                                       view_feature1),
+                                      (self.convs2, self.to_rgbs2,
+                                       view_feature2))]
+        return torch.cat(images, dim=1).permute(0, 2, 3, 1)

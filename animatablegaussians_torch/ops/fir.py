@@ -11,9 +11,13 @@ port's NCHW; the kernel walks the N x C image planes.
 ``upfirdn2d_fir`` is differentiable (``_FIR``, a ``torch.autograd.Function``):
 its backward is the same operator on the cotangent with the taps reversed,
 ``up`` and ``down`` swapped and the grad pads of ``grad_pads``, as
-``fir_pallas._bwd``. Both directions go through ``_launch``, which runs the
-plain version for tensors on the CPU and the kernel for tensors on a CUDA
-device; it never falls back from one to the other.
+``fir_pallas._bwd``. The operator is linear, so that backward is itself
+differentiable (``_FIRGrad``): the derivative of the transposed call with
+respect to its cotangent is the forward call, which an R1 penalty (a
+gradient of a gradient) launches. Every direction goes through ``_launch``
+(the derivatives by way of ``_launch_grad`` and ``_launch_grad2``),
+which runs the plain version for tensors on the CPU and the kernel for
+tensors on a CUDA device; it never falls back from one to the other.
 """
 
 from __future__ import annotations
@@ -26,7 +30,6 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.autograd.function import once_differentiable
 
 from animatablegaussians_torch.utils import cuda_build
 
@@ -202,10 +205,23 @@ def _grad_args(hw, kv, kh, up: int, down: int, pad):
             grad_pads(hw, len(kv), len(kh), up, down, pad))
 
 
+def _launch_grad(g: torch.Tensor, args) -> torch.Tensor:
+    """The first derivative of the call ``args`` (``_FIR.forward``'s
+    ``ctx.args``): the transposed call on the cotangent ``g``."""
+    return _launch(g, *_grad_args(*args))
+
+
+def _launch_grad2(gg: torch.Tensor, args) -> torch.Tensor:
+    """The second derivative of the call ``args``: the call itself on
+    ``gg``, the cotangent of its first derivative's output."""
+    return _launch(gg, *args[1:])
+
+
 class _FIR(torch.autograd.Function):
     """``_launch`` with the transposed operator as its gradient
-    (``fir_pallas._bwd``), launched directly; only ``x`` gets a
-    gradient, and only a first one."""
+    (``fir_pallas._bwd``); only ``x`` gets a gradient. The transposed call
+    is launched directly unless a graph of the backward is being built
+    for a cotangent that carries a gradient, which ``_FIRGrad`` records."""
 
     @staticmethod
     def forward(ctx, x, kv, kh, up, down, pad):
@@ -213,10 +229,31 @@ class _FIR(torch.autograd.Function):
         return _launch(x, kv, kh, up, down, pad)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, g):
-        return (_launch(g.contiguous(), *_grad_args(*ctx.args)),) \
-            + (None,) * 5
+        g = g.contiguous()
+        if g.requires_grad and torch.is_grad_enabled():
+            return (_FIRGrad.apply(g, ctx.args),) + (None,) * 5
+        return (_launch_grad(g, ctx.args),) + (None,) * 5
+
+
+class _FIRGrad(torch.autograd.Function):
+    """The transposed call of ``_FIR.backward`` (the same launch,
+    ``_launch_grad``) as a differentiable function of the cotangent: its
+    gradient is the transpose of the transpose, the forward call with the
+    forward's own arguments, which lands on the forward's output shape
+    whatever the floor in ``out_len`` dropped."""
+
+    @staticmethod
+    def forward(ctx, g, args):
+        ctx.args = args
+        return _launch_grad(g, args)
+
+    @staticmethod
+    def backward(ctx, gg):
+        gg = gg.contiguous()
+        if gg.requires_grad and torch.is_grad_enabled():
+            return _FIR.apply(gg, *ctx.args[1:]), None
+        return _launch_grad2(gg, ctx.args), None
 
 
 def upfirdn2d_fir(x: torch.Tensor, kv: Sequence[float], kh: Sequence[float],

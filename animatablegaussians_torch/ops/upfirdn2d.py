@@ -201,9 +201,10 @@ def _wavelet_upsample(x, fir: Sequence[float] = (1, 3, 3, 1),
                                      make_kernel(fir), plain=plain))
 
 
-def _wavelet_downsample(x, fir: Sequence[float] = (1, 3, 3, 1)):
+def _wavelet_downsample(x, fir: Sequence[float] = (1, 3, 3, 1),
+                        plain: bool = False):
     return _haar_transform(_downsample(_inverse_haar_transform(x),
-                                       make_kernel(fir)))
+                                       make_kernel(fir), plain=plain))
 
 
 # ---------------------------------------------------------------------------
@@ -255,5 +256,6 @@ def wavelet_upsample(x, fir: Sequence[float] = (1, 3, 3, 1)):
     return _nhwc(_wavelet_upsample, x, fir)
 
 
-def wavelet_downsample(x, fir: Sequence[float] = (1, 3, 3, 1)):
-    return _nhwc(_wavelet_downsample, x, fir)
+def wavelet_downsample(x, fir: Sequence[float] = (1, 3, 3, 1),
+                       plain: bool = False):
+    return _nhwc(_wavelet_downsample, x, fir, plain=plain)

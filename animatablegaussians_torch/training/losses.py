@@ -1,10 +1,10 @@
-"""Training losses: L1 colour, mask, offset norm, SSIM, and the crop of the
-image pair that the LPIPS term sees.
+"""Training losses: L1 colour, mask, offset norm, SSIM, the crop of the
+image pair that the LPIPS term sees, and the StyleGAN adversarial losses.
 
-Port of ``animatablegaussians_tpu/training/losses.py:15-137,157-186``.
-Images are (H, W, C) as in the JAX package. The random LPIPS crop takes its
-two uniform draws ``(fv, fu)`` from the caller, so a test can hand both
-packages the same numbers.
+Port of ``animatablegaussians_tpu/training/losses.py:15-137,157-186,
+232-246``. Images are (H, W, C) as in the JAX package. The random LPIPS
+crop takes its two uniform draws ``(fv, fu)`` from the caller, so a test
+can hand both packages the same numbers.
 """
 
 from __future__ import annotations
@@ -139,3 +139,25 @@ def ssim(a, b, data_range: float = 1.0, win_size: int = 7, k1: float = 0.01,
 
 def ssim_loss(pred, target):
     return 1.0 - ssim(pred, target)
+
+
+# StyleGAN adversarial losses (ref: utils/losses.py:139-159). The R1
+# penalty is a gradient of a gradient: its graph runs back through the
+# discriminator's backward, FIRs included (ops/fir.py::_FIRGrad).
+
+def d_logistic_loss(real_pred, fake_pred):
+    return torch.mean(F.softplus(-real_pred) + F.softplus(fake_pred))
+
+
+def g_nonsaturating_loss(fake_pred):
+    return torch.mean(F.softplus(-fake_pred))
+
+
+def d_r1_loss(discriminator_fn, real_img):
+    """R1 gradient penalty ||dD/dx||^2 per sample on real images, taken at
+    a detached copy of them, with the graph kept so that its gradient
+    reaches the discriminator's parameters."""
+    x = real_img.detach().requires_grad_(True)
+    grad, = torch.autograd.grad(torch.sum(discriminator_fn(x)), x,
+                                create_graph=True)
+    return torch.sum(grad ** 2) / real_img.shape[0]

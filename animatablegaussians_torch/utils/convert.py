@@ -17,7 +17,11 @@ CNN keys are the reference torch checkpoint's names. Layouts: HWIO conv ->
 port ``TemplateNet``'s ``state_dict``.
 
 ``lpips_from_jax`` and ``inception_from_jax`` carry the LPIPS and the
-Inception trunk's weights across.
+Inception trunk's weights across; ``dual_styleunet_v2_state``,
+``swgan_unet_state``, ``style_generator_state`` and ``discriminator_state``
+the StyleGAN2 family's (the inverses of the JAX package's
+``import_dual_styleunet_v2``, ``import_swgan_unet``,
+``import_style_generator`` and ``import_discriminator``).
 """
 
 from __future__ import annotations
@@ -38,43 +42,116 @@ def _lin_w(a):    # (in, out) -> (out, in)
     return _t(np.asarray(a).T)
 
 
-def dual_styleunet_state(p: dict) -> dict:
-    """One JAX DualStyleUNet parameter tree -> the port module's keys."""
-    sd = {}
-    for i, lp in enumerate(p["style"]):
+def _style_mlp(sd, layers):
+    for i, lp in enumerate(layers):
         sd[f"style.{i + 1}.weight"] = _lin_w(lp["weight"])
         sd[f"style.{i + 1}.bias"] = _t(lp["bias"])
 
-    def conv_layer(k, lp, downsample):
-        ci = 1 if downsample else 0
-        sd[f"{k}.{ci}.weight"] = _conv_w(lp["conv"]["weight"])
-        sd[f"{k}.{ci + 1}.bias"] = _t(lp["act_bias"])
 
-    def modulated(k, mp):
-        sd[f"{k}.weight"] = _conv_w(mp["weight"])[None]
-        sd[f"{k}.modulation.weight"] = _lin_w(mp["modulation"]["weight"])
-        sd[f"{k}.modulation.bias"] = _t(mp["modulation"]["bias"])
+def _conv_layer(sd, k, lp, downsample):
+    ci = 1 if downsample else 0
+    sd[f"{k}.{ci}.weight"] = _conv_w(lp["conv"]["weight"])
+    sd[f"{k}.{ci + 1}.bias"] = _t(lp["act_bias"])
 
-    conv_layer("conv_in", p["conv_in"], True)
-    for i, fp in enumerate(p["from_rgbs"]):
-        conv_layer(f"from_rgbs.{i}.conv", fp["conv"], False)
-    for i, cp in enumerate(p["cond_convs"]):
-        conv_layer(f"cond_convs.{i}.conv1", cp["conv1"], False)
-        conv_layer(f"cond_convs.{i}.conv2", cp["conv2"], True)
-    for i, cp in enumerate(p["comb_convs"]):
-        conv_layer(f"comb_convs.{i}", cp, False)
-    for branch in ("1", "2"):
-        for i, sp in enumerate(p[f"convs{branch}"]):
-            k = f"convs{branch}.{i}"
-            modulated(f"{k}.conv", sp["conv"])
-            sd[f"{k}.noise.weight"] = _t(sp["noise_weight"]).reshape(1)
-            sd[f"{k}.activate.bias"] = _t(sp["act_bias"])
-        for i, rp in enumerate(p[f"to_rgbs{branch}"]):
-            k = f"to_rgbs{branch}.{i}"
-            modulated(f"{k}.conv", rp["conv"])
-            sd[f"{k}.bias"] = _t(rp["bias"]).reshape(1, -1, 1, 1)
-    for i, n in enumerate(p["noises"]):
+
+def _modulated(sd, k, mp):
+    sd[f"{k}.weight"] = _conv_w(mp["weight"])[None]
+    sd[f"{k}.modulation.weight"] = _lin_w(mp["modulation"]["weight"])
+    sd[f"{k}.modulation.bias"] = _t(mp["modulation"]["bias"])
+
+
+def _styled_conv(sd, k, sp):
+    _modulated(sd, f"{k}.conv", sp["conv"])
+    sd[f"{k}.noise.weight"] = _t(sp["noise_weight"]).reshape(1)
+    sd[f"{k}.activate.bias"] = _t(sp["act_bias"])
+
+
+def _to_rgb(sd, k, rp):
+    _modulated(sd, f"{k}.conv", rp["conv"])
+    sd[f"{k}.bias"] = _t(rp["bias"]).reshape(1, -1, 1, 1)
+
+
+def _noises(sd, noises):
+    for i, n in enumerate(noises):
         sd[f"noises.noise_{i}"] = _t(np.asarray(n).transpose(0, 3, 1, 2))
+
+
+def dual_styleunet_state(p: dict, branches=("1", "2")) -> dict:
+    """One JAX DualStyleUNet parameter tree -> the port module's keys; the
+    decoder branches are ``convs<b>`` / ``to_rgbs<b>`` for each ``b`` of
+    ``branches``."""
+    sd = {}
+    _style_mlp(sd, p["style"])
+    _conv_layer(sd, "conv_in", p["conv_in"], True)
+    for i, fp in enumerate(p["from_rgbs"]):
+        _conv_layer(sd, f"from_rgbs.{i}.conv", fp["conv"], False)
+    for i, cp in enumerate(p["cond_convs"]):
+        _conv_layer(sd, f"cond_convs.{i}.conv1", cp["conv1"], False)
+        _conv_layer(sd, f"cond_convs.{i}.conv2", cp["conv2"], True)
+    for i, cp in enumerate(p["comb_convs"]):
+        _conv_layer(sd, f"comb_convs.{i}", cp, False)
+    for branch in branches:
+        for i, sp in enumerate(p[f"convs{branch}"]):
+            _styled_conv(sd, f"convs{branch}.{i}", sp)
+        for i, rp in enumerate(p[f"to_rgbs{branch}"]):
+            _to_rgb(sd, f"to_rgbs{branch}.{i}", rp)
+    _noises(sd, p["noises"])
+    return sd
+
+
+def dual_styleunet_v2_state(p: dict) -> dict:
+    """A JAX ``DualStyleUNetV2`` tree, any mode -> the port module's keys:
+    v1's layout (the modes differ only in stage counts and widths, which
+    the tree's shapes carry), as ``import_dual_styleunet_v2`` reads it."""
+    return dual_styleunet_state(p)
+
+
+def swgan_unet_state(p: dict) -> dict:
+    """A JAX ``SWGANUnet`` tree -> the port module's keys: v2's layout
+    with the one ``convs`` / ``to_rgbs`` branch."""
+    return dual_styleunet_state(p, branches=("",))
+
+
+def style_generator_state(p: dict) -> dict:
+    """A JAX ``StyleGenerator`` tree -> the port module's keys, the inverse
+    of ``import_style_generator`` (checkpoint.py:258-299)."""
+    sd = {}
+    _style_mlp(sd, p["style"])
+    sd["input.input"] = _t(np.asarray(p["input"]).transpose(0, 3, 1, 2))
+    _styled_conv(sd, "conv1", p["conv1"])
+    _to_rgb(sd, "to_rgb1", p["to_rgb1"])
+    for i, sp in enumerate(p["convs"]):
+        _styled_conv(sd, f"convs.{i}", sp)
+    for i, rp in enumerate(p["to_rgbs"]):
+        _to_rgb(sd, f"to_rgbs.{i}", rp)
+    _noises(sd, p["noises"])
+    return sd
+
+
+def discriminator_state(p: dict) -> dict:
+    """A JAX ``Discriminator`` tree -> the port module's keys, the inverse
+    of ``import_discriminator`` (checkpoint.py:216-256). The JAX net
+    flattens its 4x4 map NHWC, the port NCHW as the reference does, so
+    ``final_linear.0``'s columns go back from (h, w, c) to (c, h, w)
+    order (the importer's reorder at :241-250, undone)."""
+    sd = {}
+    for i, fp in enumerate(p["from_rgbs"] + [p["final_from_rgb"]]):
+        _conv_layer(sd, f"from_rgbs.{i}.conv", fp["conv"], False)
+    for i, cp in enumerate(p["convs"]):
+        _conv_layer(sd, f"convs.{i}.conv1", cp["conv1"], False)
+        _conv_layer(sd, f"convs.{i}.conv2", cp["conv2"], True)
+    _conv_layer(sd, "final_conv", p["final_conv"], False)
+    lin0, lin1 = p["final_linear"]
+    w0 = np.asarray(lin0["weight"]).T                     # (out, h*w*c)
+    c = w0.shape[1] // 16
+    sd["final_linear.0.weight"] = _t(
+        w0.reshape(-1, 4, 4, c).transpose(0, 3, 1, 2).reshape(-1, c * 16))
+    sd["final_linear.0.bias"] = _t(lin0["bias"])
+    sd["final_linear.1.weight"] = _lin_w(lin1["weight"])
+    sd["final_linear.1.bias"] = _t(lin1["bias"])
+    for i, lp in enumerate(p.get("mapping", [])):
+        sd[f"mapping.{i}.weight"] = _lin_w(lp["weight"])
+        sd[f"mapping.{i}.bias"] = _t(lp["bias"])
     return sd
 
 

@@ -3,8 +3,9 @@ the avatar train step, and the CNN's separable FIRs through their kernel in
 the render (with mean hands and pose-map regeneration) and in the B = 2
 batched train step and its scan; then the two entry points a user runs,
 training and animation, on a full-width capture on disk, and the scoring
-of that capture's frames; last, the template stack that prepares a
-subject, on a capture of its own.
+of that capture's frames; then the template stack that prepares a
+subject, on a capture of its own; last, the StyleGAN2 family and one GAN
+step with its R1 penalty, the second derivative through the FIR kernel.
 
     python3 chip_smoke.py
 
@@ -180,6 +181,35 @@ itself. Phases, each printing a line, any failure exiting non-zero:
                 utils/profiling.trace Chrome trace by trace_report against
                 its CUDA-event time, the Fréchet distance's seconds at 2048
                 dimensions, peak memory.
+ 19. gan      - the StyleGAN2 family at the avatar heads' widths (512^2
+                condition maps, 1024^2 out, style_dim 512, channel_max
+                512): (a) DualStyleUNetV2 in modes base, add_dwt and wo_dwt
+                and SWGANUnet, one B = 1 forward each with two styles mixed
+                at the default inject_index and fixed noise, through the
+                FIR kernel against through its plain version (bit for bit
+                under cuDNN's deterministic algorithms; under the default
+                ones the gap beside the kernel route's own run-to-run gap;
+                the plain route launches no kernel), ms each way; (b)
+                StyleGenerator(1024, n_mlp 8) forward and backward at
+                B = 2, ms and peak memory; (c) one
+                GAN step at B = 2: G the base net, D the Discriminator(1024,
+                6 channels) on G's [front | back] output and seeded real
+                maps; the D half's logistic loss and R1 penalty (a
+                gradient of a gradient: the FIR's second derivative through
+                ops/fir.py::_FIRGrad), Adam; the G half's non-saturating
+                loss, Adam; step 0's losses and gradients per group through
+                the kernel against the plain path (RTOL_LOSS, RTOL_GRAD),
+                2 warm-up and 3 timed steps (launch counter reset just
+                before: one step's launches each), ms/step, peak memory,
+                the FIR launches of one step by direction (forward, first
+                and second derivative, as fir_calls records them), the
+                device's busy time of one step and the FIR kernel's share;
+                (d) phase 11's comparison (fir_phase) on each distinct FIR
+                call of the step, in each direction it ran (forward
+                bitwise, both derivatives within RTOL_FIR), with the same
+                times. The FIR record gains ``gan_launches``,
+                ``gan_step_launches``, ``gan_device_ms``,
+                ``gan_max_abs_err`` and the ``bwd2_`` keys.
 
 Each kernel's record carries its bound: the least time the card could take
 for the same work, the larger of the bytes it must move over the memory
@@ -361,6 +391,25 @@ EVAL_RTOL_FID, EVAL_FAULT_MIN = 1e-5, 10
 # kernels cannot take longer than the span that holds them (up to the two
 # clocks' noise), and the launch gaps between them are a small share
 EVAL_TRACE_SHARE = (0.5, 1.1)
+# phase 19: the StyleGAN2 family at the avatar heads' widths
+# (models/avatar.py:129-135): 512^2 condition maps in, 1024^2 out
+GAN_KW = dict(inp_size=512, inp_ch=3, out_ch=3, out_size=1024,
+              style_dim=512, n_mlp=2, channel_max=512)
+# the GAN step's batch, its warm-up and timed steps, the R1 weight
+# (StyleGAN2's gamma, as r1 / 2 * gamma) and Adam's settings (StyleGAN2's)
+GAN_B, GAN_WARMUP, GAN_TIMED = 2, 2, 3
+GAN_R1_GAMMA, GAN_LR, GAN_BETAS = 10.0, 2e-3, (0.0, 0.99)
+# the host's draw of the default inject_index, seeded alike before each
+# route's forward
+GAN_INJECT_SEED = 19
+# a generator's forward through the FIR kernel against through its plain
+# version is held bit for bit under cuDNN's deterministic algorithms: every
+# FIR launch of it equals its plain version bit for bit, and deterministic
+# cuDNN sums equal inputs alike. Under the default algorithms the same
+# route run twice already differs by 7.2e-7 to 1.42e-6 of the output's
+# largest |value| (NVIDIA H100 80GB HBM3, 700 W: the four generators over
+# the runs PERF.md lists), so that gap is printed beside the route's own
+# run-to-run gap, not held
 
 
 def phase(name, msg):
@@ -651,21 +700,44 @@ def fir_count(net, heads=("position_net", "other_net", "color_net")):
 @contextlib.contextmanager
 def fir_calls():
     """Records each launch of the FIR kernel in the block, through
-    ``ops/fir.py::_launch``: (input shape, taps, up, down, pad), and
-    whether the input carries a gradient."""
+    ``ops/fir.py``'s ``_launch`` and its two derivative entries, as (key,
+    order, grad): key the forward call's (input shape, taps, up, down,
+    pad); order 0 for a forward, 1 for a first derivative
+    (``_launch_grad``, the transposed call on a cotangent), 2 for a second
+    (``_launch_grad2``, the forward call again on the cotangent of a first
+    derivative's output); grad whether the launch's input carries a
+    gradient."""
     from animatablegaussians_torch.ops import fir
-    inner, calls = fir._launch, []
+    saved = fir._launch, fir._launch_grad, fir._launch_grad2
+    calls, within = [], []
 
-    def recorded(x, kv, kh, up, down, pad):
-        calls.append(((tuple(x.shape), tuple(kv), tuple(kh), up, down,
-                       tuple(pad)), x.requires_grad))
-        return inner(x, kv, kh, up, down, pad)
+    def launch(x, kv, kh, up, down, pad):
+        if within:
+            order, (hw, *args) = within[-1]
+            key = (tuple(x.shape[:2]) + tuple(hw), *args)
+        else:
+            order = 0
+            key = (tuple(x.shape), tuple(kv), tuple(kh), up, down,
+                   tuple(pad))
+        calls.append((key, order, x.requires_grad))
+        return saved[0](x, kv, kh, up, down, pad)
 
-    fir._launch = recorded
+    def derivative(order, entry):
+        def recorded(g, args):
+            within.append((order, args))
+            try:
+                return entry(g, args)
+            finally:
+                within.pop()
+        return recorded
+
+    fir._launch = launch
+    fir._launch_grad = derivative(1, saved[1])
+    fir._launch_grad2 = derivative(2, saved[2])
     try:
         yield calls
     finally:
-        fir._launch = inner
+        fir._launch, fir._launch_grad, fir._launch_grad2 = saved
 
 
 @functools.lru_cache(maxsize=None)
@@ -779,96 +851,128 @@ def host_ms(fn, reps: int) -> float:
     return t
 
 
-def fir_phase(calls, card: str, dev) -> dict:
-    """Phase 11: the FIR kernel against its plain version and the library
-    call at each distinct call of ``calls`` (``fir_calls`` records of one
-    train forward), forward and backward (the autograd VJP of a call whose
-    input carries a gradient). For each: the forward bitwise against the
-    plain version, the backward within RTOL_FIR; the kernel's device time
-    (``device_ms``), its time launch to launch (CUDA events over 20
-    back-to-back calls, which include the host's cost where the card
-    waits for it), the host's time per call, the plain version's and the
-    library call's times and the bound. Returns the kernel's JSON record:
-    sums over the forward's calls and, for the ``bwd_`` keys, over the
-    calls whose input carries a gradient."""
+# fir_phase's directions: (the JSON record's key prefix, the printed name)
+FIR_DIRECTIONS = (("", "forward"), ("bwd_", "first derivative"),
+                  ("bwd2_", "second derivative"))
+
+
+def fir_phase(calls, card: str, dev, step: bool = False) -> dict:
+    """The FIR kernel against its plain version and the library call at
+    each distinct call of ``calls`` (``fir_calls`` records). Phase 11's are
+    one train forward's: each call whose input carries a gradient counts
+    one first derivative (the autograd VJP). Phase 19's are a whole GAN
+    step's (``step``): the derivatives counted are those the step
+    launched, second ones included (the gradient of the VJP with respect
+    to its cotangent, through ``_FIRGrad``; the library's is its forward
+    call on the cotangent's cotangent, one call that computes the same
+    function). For each call and direction: the forward bitwise against
+    the plain version, the derivatives within RTOL_FIR of autograd through
+    it; the kernel's device time (``device_ms``), its time launch to
+    launch (CUDA events over 20 back-to-back calls, which include the
+    host's cost where the card waits for it), the host's time per call,
+    the plain version's and the library call's times and the bound (input
+    + output bytes over the memory rate). Returns the kernel's JSON
+    record: sums over the counted calls of each direction, keys prefixed
+    as ``FIR_DIRECTIONS`` says, and the largest |kernel - plain|."""
     from animatablegaussians_torch.ops.fir import (grad_pads, upfirdn2d_fir,
                                                    upfirdn2d_fir_plain)
     counts = {}
-    for key, grad in calls:
-        n, n_grad = counts.get(key, (0, 0))
-        counts[key] = (n + 1, n_grad + int(grad))
+    for key, order, grad in calls:
+        n = counts.setdefault(key, [0, 0, 0])
+        n[order] += 1
+        if not step and order == 0 and grad:
+            n[1] += 1
     gen = torch.Generator(device=dev).manual_seed(4)
     names = ("ms", "device_ms", "host_ms", "plain_ms", "library_ms",
              "library_device_ms", "bound_ms")
-    tot = dict.fromkeys(names, 0.0)
-    tot_bwd = dict.fromkeys(names, 0.0)
+    tot = [dict.fromkeys(names, 0.0) for _ in FIR_DIRECTIONS]
+    routes = (upfirdn2d_fir, upfirdn2d_fir_plain, fir_library)
     worst = 0.0
-    for (shape, kv, kh, up, down, pad), (n, n_grad) in counts.items():
-        x = torch.randn(shape, generator=gen, device=dev)
+    for (shape, kv, kh, up, down, pad), n in counts.items():
         args = (kv, kh, up, down, pad)
+        x = torch.randn(shape, generator=gen, device=dev)
         yk, yp = upfirdn2d_fir(x, *args), upfirdn2d_fir_plain(x, *args)
         yl = fir_library(x, *args)
         fwd_abs = float((yk - yp).abs().max())
         lib_err = float((yl - yp).abs().max() / yp.abs().max())
         g = torch.randn(yk.shape, generator=gen, device=dev)
-        xs = [x.clone().requires_grad_(True) for _ in range(3)]
-        outs = [upfirdn2d_fir(xs[0], *args),
-                upfirdn2d_fir_plain(xs[1], *args), fir_library(xs[2], *args)]
-        gk, gp, gl = (torch.autograd.grad(o, xi, g, retain_graph=True)[0]
-                      for o, xi in zip(outs, xs))
-        bwd_abs = float((gk - gp).abs().max())
-        bwd_err = bwd_abs / float(gp.abs().max())
-        worst = max(worst, fwd_abs, bwd_abs)
-        if not (torch.equal(yk, yp) and bwd_err <= RTOL_FIR):
-            raise AssertionError(f"FIR kernel disagrees with plain at "
-                                 f"{shape} {pad}: forward max |diff| "
-                                 f"{fwd_abs} (want 0), backward {bwd_err}")
-        fwd = [lambda: upfirdn2d_fir(x, *args),
-               lambda: upfirdn2d_fir_plain(x, *args),
-               lambda: fir_library(x, *args)]
-        bwd = [lambda o=o, xi=xi: torch.autograd.grad(o, xi, g,
-                                                      retain_graph=True)
-               for o, xi in zip(outs, xs)]
-        t = {}
-        for d, fns in (("fwd", fwd), ("bwd", bwd)):
-            t[d] = dict(ms=cuda_ms(fns[0], 20),
-                        device_ms=device_ms(fns[0], 10),
-                        host_ms=host_ms(fns[0], 20),
-                        plain_ms=cuda_ms(fns[1], 5),
-                        library_ms=cuda_ms(fns[2], 20),
-                        library_device_ms=device_ms(fns[2], 10))
-        t["fwd"]["bound_ms"] = bound((x.numel() + yk.numel()) * 4)[0]
-        t["bwd"]["bound_ms"] = bound((g.numel() + gk.numel()) * 4)[0]
+        r = torch.randn(shape, generator=gen, device=dev)
+        xs = [x.clone().requires_grad_(True) for _ in routes]
+        gs = [g.clone().requires_grad_(bool(n[2])) for _ in routes]
+        outs = [fn(xi, *args) for fn, xi in zip(routes, xs)]
+        firsts = [torch.autograd.grad(o, xi, gi, retain_graph=True,
+                                      create_graph=bool(n[2]))[0]
+                  for o, xi, gi in zip(outs, xs, gs)]
+        errs = [0.0, 0.0, 0.0]
+        pairs = [(1, firsts[:2])]
+        if n[2]:
+            pairs.append((2, [torch.autograd.grad(f, gi, r,
+                                                  retain_graph=True)[0]
+                              for f, gi in zip(firsts[:2], gs)]))
+        for d, (k, p) in pairs:
+            e = float((k - p).detach().abs().max())
+            worst = max(worst, e)
+            errs[d] = e / float(p.detach().abs().max())
+        worst = max(worst, fwd_abs)
+        if not (torch.equal(yk, yp) and max(errs) <= RTOL_FIR):
+            raise AssertionError(
+                f"FIR kernel disagrees with plain at {shape} up {up} down "
+                f"{down} pad {pad}: forward max |diff| {fwd_abs} (want "
+                f"0), derivatives {errs[1:]} (limit {RTOL_FIR:g})")
+        fns = [[lambda fn=fn: fn(x, *args) for fn in routes],
+               [lambda o=o, xi=xi: torch.autograd.grad(
+                   o, xi, g, retain_graph=True) for o, xi in zip(outs, xs)]]
+        if n[2]:
+            fns.append([lambda f=f, gi=gi: torch.autograd.grad(
+                f, gi, r, retain_graph=True)
+                for f, gi in zip(firsts[:2], gs)]
+                + [lambda: fir_library(r, *args)])
+        # a forward or second derivative reads x's shape and writes y's, a
+        # first derivative the other way round
+        moved = (x.numel() + yk.numel()) * 4
         gpad = grad_pads(shape[2:], len(kv), len(kh), up, down, pad)
-        phase("fir", f"{n:2d}x ({n_grad} with a gradient) {tuple(shape)} up "
-              f"{up} down {down} pad {pad} -> {tuple(yk.shape[1:])}: fwd "
-              f"bitwise equal, library rel err {lib_err:.1e}; bwd (pad "
-              f"{gpad}) rel err {bwd_err:.1e}")
-        for d in ("fwd", "bwd"):
-            v = t[d]
-            phase("fir", f"    {d}: kernel device {v['device_ms']:.4f} ms, "
-                  f"launch to launch {v['ms']:.4f}, host {v['host_ms']:.4f};"
-                  f" library device {v['library_device_ms']:.4f}, launch to "
-                  f"launch {v['library_ms']:.4f}; plain {v['plain_ms']:.4f};"
-                  f" bound {v['bound_ms']:.4f}")
-        for key in names:
-            tot[key] += n * t["fwd"][key]
-            tot_bwd[key] += n_grad * t["bwd"][key]
-    n_grad = sum(int(grad) for _, grad in calls)
-    for name, v, k in (("forward", tot, len(calls)),
-                       ("backward", tot_bwd, n_grad)):
-        phase("fir", f"{k} calls a train {name} ({len(counts)} distinct "
-              f"shapes): kernel device {v['device_ms']:.3f} ms, launch to "
-              f"launch {v['ms']:.3f}, host {v['host_ms']:.3f}; library "
-              f"device {v['library_device_ms']:.3f}, launch to launch "
+        phase("fir", f"{tuple(shape)} up {up} down {down} pad {pad} -> "
+              f"{tuple(yk.shape[1:])}, launched {n[0]}x / {n[1]}x / "
+              f"{n[2]}x (forward / first / second derivative): fwd "
+              f"bitwise equal, library rel err {lib_err:.1e}; first (pad "
+              f"{gpad}) rel err {errs[1]:.1e}"
+              + (f"; second rel err {errs[2]:.1e}" if n[2] else ""))
+        for d, (_, label) in enumerate(FIR_DIRECTIONS):
+            if not n[d]:
+                continue
+            k, p, lib = fns[d]
+            v = dict(ms=cuda_ms(k, 20), device_ms=device_ms(k, 10),
+                     host_ms=host_ms(k, 20), plain_ms=cuda_ms(p, 5),
+                     library_ms=cuda_ms(lib, 20),
+                     library_device_ms=device_ms(lib, 10),
+                     bound_ms=bound(moved)[0])
+            phase("fir", f"    {label}: kernel device {v['device_ms']:.4f} "
+                  f"ms, launch to launch {v['ms']:.4f}, host "
+                  f"{v['host_ms']:.4f}; library device "
+                  f"{v['library_device_ms']:.4f}, launch to launch "
+                  f"{v['library_ms']:.4f}; plain {v['plain_ms']:.4f}; bound "
+                  f"{v['bound_ms']:.4f}")
+            for key in names:
+                tot[d][key] += n[d] * v[key]
+    rec = dict(name="upfirdn2d_fir", route="cuda",
+               source="animatablegaussians_torch/csrc/fir.cu",
+               replaces="animatablegaussians_tpu/ops/fir_pallas.py:180 "
+                        "(_vhfir_kernel; pl.pallas_call at :231)",
+               bound_by="bytes", max_abs_err=worst)
+    for d, (prefix, label) in enumerate(FIR_DIRECTIONS):
+        k = sum(n[d] for n in counts.values())
+        if not k:
+            continue
+        v = tot[d]
+        phase("fir", f"{label}: {k} launches over "
+              f"{sum(1 for n in counts.values() if n[d])} distinct calls: "
+              f"kernel device {v['device_ms']:.3f} ms, launch to launch "
+              f"{v['ms']:.3f}, host {v['host_ms']:.3f}; library device "
+              f"{v['library_device_ms']:.3f}, launch to launch "
               f"{v['library_ms']:.3f}; plain {v['plain_ms']:.3f}; bound "
               f"{v['bound_ms']:.3f} ({card})")
-    return dict(name="upfirdn2d_fir", route="cuda",
-                source="animatablegaussians_torch/csrc/fir.cu",
-                replaces="animatablegaussians_tpu/ops/fir_pallas.py:180 "
-                         "(_vhfir_kernel; pl.pallas_call at :231)",
-                bound_by="bytes", max_abs_err=worst, **tot,
-                **{f"bwd_{k}": v for k, v in tot_bwd.items()})
+        rec.update({prefix + key: val for key, val in v.items()})
+    return rec
 
 
 def driver_phase(card: str, bare_step_ms: float, records: list,
@@ -2009,6 +2113,272 @@ def template_phase(card: str, records: list) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def gan_phase(card: str, records: list) -> None:
+    """Phase 19: the StyleGAN2 family at the avatar heads' widths
+    (``GAN_KW``). (a) Each generator's forward at B = 1 (DualStyleUNetV2
+    in its three modes, SWGANUnet), two styles mixed at the default
+    inject_index and fixed noise, through the FIR kernel against through
+    its plain version (bit for bit under deterministic cuDNN), ms each
+    way. (b) StyleGenerator at
+    1024^2 (n_mlp 8), forward and backward at B = GAN_B: ms and peak
+    memory. (c) One GAN step at B = GAN_B: G the base DualStyleUNetV2, D
+    the Discriminator on G's 6-channel [front | back] output and on seeded
+    real maps; the D half d_logistic_loss + GAN_R1_GAMMA / 2 * d_r1_loss
+    (the R1 penalty: the second derivative through the FIR kernel), an
+    Adam step, the G half g_nonsaturating_loss, an Adam step. Step 0's
+    losses and gradients per group through the kernel against the plain
+    path (RTOL_LOSS, RTOL_GRAD), then GAN_WARMUP + GAN_TIMED steps:
+    ms/step, peak memory, the FIR launches of one step by direction, the
+    device's busy time under torch.profiler and the FIR kernel's share of
+    it. (d) ``fir_phase`` on that step's ``fir_calls`` records. The FIR
+    record gains the timed steps' launches (``gan_launches``), one step's
+    by direction with their device times, the second derivative's times
+    (``bwd2_*``) and the step's largest |kernel - plain|."""
+    import random
+
+    from animatablegaussians_torch.models.discriminator import Discriminator
+    from animatablegaussians_torch.models.stylegan import StyleGenerator
+    from animatablegaussians_torch.models.styleunet_v2 import (
+        DualStyleUNetV2, SWGANUnet)
+    from animatablegaussians_torch.ops import fir
+    from animatablegaussians_torch.training import losses as tl
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda:0")
+    gen = torch.Generator(device=dev).manual_seed(19)
+
+    def build(cls, seed, **kw):
+        net = cls(generator=torch.Generator().manual_seed(seed), device=dev,
+                  **kw)
+        with torch.no_grad():            # the noise weights start at zero
+            for name, p in net.named_parameters():
+                if name.endswith("noise.weight"):
+                    p.fill_(0.1)
+        return net
+
+    # (a) each generator's forward through the kernel and the plain version
+    cond = torch.randn((1, GAN_KW["inp_size"], GAN_KW["inp_size"], 3),
+                       generator=gen, device=dev)
+    styles = [torch.randn((1, GAN_KW["style_dim"]), generator=gen,
+                          device=dev) for _ in range(2)]
+    G = None
+    for i, (label, cls, kw) in enumerate((
+            ("DualStyleUNetV2 base", DualStyleUNetV2, dict(mode="base")),
+            ("DualStyleUNetV2 add_dwt", DualStyleUNetV2,
+             dict(mode="add_dwt")),
+            ("DualStyleUNetV2 wo_dwt", DualStyleUNetV2, dict(mode="wo_dwt")),
+            ("SWGANUnet", SWGANUnet, {}))):
+        net = build(cls, 100 + i, **GAN_KW, **kw)
+        noise = net.make_noise(gen)
+
+        def fwd(plain, net=net, noise=noise):
+            random.seed(GAN_INJECT_SEED)
+            with torch.no_grad():
+                return net(styles, cond, noise=noise, plain=plain)[0]
+
+        torch.backends.cudnn.deterministic = True
+        fir.upfirdn2d_fir.launches = 0
+        out_k = fwd(False)
+        n_k = fir.upfirdn2d_fir.launches
+        out_p = fwd(True)
+        n_p = fir.upfirdn2d_fir.launches - n_k
+        torch.backends.cudnn.deterministic = False
+        scale = float(out_p.abs().max())
+
+        def gap(a, b):
+            return float((a - b).abs().max()) / scale
+
+        k1, k2, p1 = fwd(False), fwd(False), fwd(True)
+        random.seed(GAN_INJECT_SEED)
+        index = random.randint(1, net.n_latent - 1)
+        want = (1, GAN_KW["out_size"], GAN_KW["out_size"],
+                GAN_KW["out_ch"] * len(net.BRANCHES))
+        ms_k, ms_p = (cuda_ms(lambda p=p: fwd(p), 5, 2)
+                      for p in (False, True))
+        phase("gan", f"{label}: {sum(p.numel() for p in net.parameters())} "
+              f"parameters, inject_index {index} of {net.n_latent}; "
+              f"{tuple(out_k.shape)}, {n_k} FIR launches (plain route "
+              f"{n_p}); kernel vs plain under deterministic cuDNN: "
+              f"{'bit for bit' if torch.equal(out_k, out_p) else 'DIFFER'}"
+              f"; under the default algorithms max |diff| / max |plain| "
+              f"{gap(k1, p1):.2e} (the kernel route twice {gap(k1, k2):.2e})"
+              f"; {ms_k:.2f} ms a forward through the kernel, {ms_p:.2f} "
+              f"plain ({card})")
+        if not (tuple(out_k.shape) == want and scale > 0
+                and bool(torch.isfinite(out_k).all()) and n_k > 0
+                and n_p == 0 and torch.equal(out_k, out_p)):
+            raise AssertionError(f"{label}: forward through the kernel "
+                                 f"disagrees or is malformed")
+        if kw.get("mode") == "base":
+            G = net
+        del net, out_k, out_p, k1, k2, p1, fwd
+        torch.cuda.empty_cache()
+
+    # (b) StyleGenerator at 1024^2, forward and backward
+    sg = build(StyleGenerator, 110, size=GAN_KW["out_size"],
+               style_dim=GAN_KW["style_dim"], n_mlp=8, channel_multiplier=2)
+    z = [torch.randn((GAN_B, GAN_KW["style_dim"]), generator=gen,
+                     device=dev)]
+    sg_noise = sg.make_noise(gen)
+
+    def sg_step():
+        sg.zero_grad(set_to_none=True)
+        img = sg(z, noise=sg_noise)[0]
+        img.square().mean().backward()
+        return img
+
+    img = sg_step()
+    if not (tuple(img.shape) == (GAN_B, GAN_KW["out_size"],
+                                 GAN_KW["out_size"], 3)
+            and bool(torch.isfinite(img).all())
+            and all(bool(torch.isfinite(p.grad).all())
+                    for p in sg.parameters() if p.grad is not None)):
+        raise AssertionError("StyleGenerator: malformed or non-finite")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sg_ms = cuda_ms(sg_step, 3, 1)
+    phase("gan", f"StyleGenerator(1024, n_mlp 8): "
+          f"{sum(p.numel() for p in sg.parameters())} parameters; forward "
+          f"+ backward at B = {GAN_B}: {sg_ms:.2f} ms, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB ({card})")
+    del sg, img, sg_noise
+    torch.cuda.empty_cache()
+
+    # (c) one GAN step: D half (logistic + R1, Adam), G half (Adam)
+    D = build(Discriminator, 120, size=GAN_KW["out_size"],
+              img_channel=2 * GAN_KW["out_ch"],
+              channel_max=GAN_KW["channel_max"])
+    side = GAN_KW["inp_size"]
+    cond_b = torch.randn((GAN_B, side, side, 3), generator=gen, device=dev)
+    z_b = [torch.randn((GAN_B, GAN_KW["style_dim"]), generator=gen,
+                       device=dev)]
+    real = torch.randn((GAN_B, GAN_KW["out_size"], GAN_KW["out_size"],
+                        2 * GAN_KW["out_ch"]), generator=gen, device=dev)
+    noise = G.make_noise(gen)
+
+    def d_half(plain):
+        D.requires_grad_(True)
+        D.zero_grad(set_to_none=True)
+        with torch.no_grad():
+            fake = G(z_b, cond_b, noise=noise, plain=plain)[0]
+        d_loss = tl.d_logistic_loss(D(real, plain=plain),
+                                    D(fake, plain=plain))
+        r1 = tl.d_r1_loss(lambda x: D(x, plain=plain), real)
+        (d_loss + GAN_R1_GAMMA / 2 * r1).backward()
+        return {"d_logistic": d_loss.detach(), "r1": r1.detach()}
+
+    def g_half(plain):
+        D.requires_grad_(False)
+        G.zero_grad(set_to_none=True)
+        fake = G(z_b, cond_b, noise=noise, plain=plain)[0]
+        g_loss = tl.g_nonsaturating_loss(D(fake, plain=plain))
+        g_loss.backward()
+        return {"g_nonsaturating": g_loss.detach()}
+
+    def halves(plain):
+        terms = d_half(plain)
+        g_d = grad_snapshot(D)
+        terms.update(g_half(plain))
+        return terms, g_d, grad_snapshot(G)
+
+    t_k, gd_k, gg_k = halves(False)
+    t_p, gd_p, gg_p = halves(True)
+    loss_err = {k: abs(float(t_k[k]) - float(t_p[k]))
+                / max(abs(float(t_p[k])), 1e-30) for k in t_p}
+    grad_err = {**{f"G.{g}": e for g, e in grad_errors(G, gg_k,
+                                                       gg_p).items()},
+                **{f"D.{g}": e for g, e in grad_errors(D, gd_k,
+                                                       gd_p).items()}}
+    phase("gan", f"step 0 at B = {GAN_B}, kernel path vs plain path: loss "
+          "terms " + ", ".join(f"{k} {float(t_k[k]):.6f} (rel {e:.1e})"
+                               for k, e in loss_err.items())
+          + f" (limit {RTOL_LOSS:g}); gradients " + ", ".join(
+              f"{g} {e:.2e}" for g, e in grad_err.items())
+          + f" (limit {RTOL_GRAD:g})")
+    if not (all(math.isfinite(float(v)) for v in t_k.values())
+            and max(loss_err.values()) <= RTOL_LOSS
+            and max(grad_err.values()) <= RTOL_GRAD):
+        raise AssertionError("GAN step: kernel path disagrees with plain")
+    del gd_k, gg_k, gd_p, gg_p
+
+    g_opt = torch.optim.Adam(G.parameters(), lr=GAN_LR, betas=GAN_BETAS)
+    d_opt = torch.optim.Adam(D.parameters(), lr=GAN_LR, betas=GAN_BETAS)
+
+    def step():
+        terms = d_half(False)
+        d_opt.step()
+        terms.update(g_half(False))
+        g_opt.step()
+        return terms
+
+    def check(i, terms):
+        vals = {k: float(v) for k, v in terms.items()}
+        phase("gan", f"step {i}: " + ", ".join(f"{k} {v:.6f}"
+                                               for k, v in vals.items()))
+        if not all(math.isfinite(v) for v in vals.values()):
+            raise AssertionError(f"GAN step {i}: non-finite {vals}")
+
+    for i in range(GAN_WARMUP):
+        check(i, step())
+    with fir_calls() as launches:
+        check(GAN_WARMUP, step())
+    by_dir = {label: sum(1 for _, order, _ in launches if order == d)
+              for d, (_, label) in enumerate(FIR_DIRECTIONS)}
+    fir.upfirdn2d_fir.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_gan = []
+    for i in range(GAN_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        terms = step()
+        torch.cuda.synchronize()
+        t_gan.append((time.perf_counter() - t0) * 1e3)
+        check(GAN_WARMUP + 1 + i, terms)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    gan_launches = fir.upfirdn2d_fir.launches
+    med = statistics.median(t_gan)
+    phase("gan", f"FIR launches of one step by direction: {by_dir}; "
+          f"{gan_launches} in {GAN_TIMED} timed steps")
+    if not (gan_launches == GAN_TIMED * len(launches)
+            and min(by_dir.values()) > 0):
+        raise AssertionError(f"GAN step FIR launches {gan_launches}, "
+                             f"{by_dir}")
+    phase("gan", f"median {med:.2f} ms/step over {GAN_TIMED} steps "
+          f"{['%.2f' % t for t in t_gan]} after {GAN_WARMUP + 1} warm-up; "
+          f"peak memory {peak:.2f} GiB ({card})")
+    busy, rows, _ = device_profile(step, top=10 ** 6)
+    if busy is None:
+        phase("gan", "torch.profiler saw no device time in the GAN step: "
+              "busy share not measured")
+    else:
+        fir_busy = sum(ms for name, ms, _ in rows if "fir_kernel" in name)
+        phase("gan", f"one step: device busy {busy:.3f} ms of a median "
+              f"{med:.2f} ms (idle {100 * (1 - busy / med):.1f}%); the FIR "
+              f"kernel {fir_busy:.3f} ms of it "
+              f"({100 * fir_busy / busy:.2f}%)")
+        for name, ms, calls in rows[:8]:
+            phase("gan", f"  {ms:9.3f} ms {calls:5d} calls  {name[:70]}")
+
+    # (d) each distinct FIR call of the step, in each direction
+    res = fir_phase(launches, card, dev, step=True)
+    fir_ms = sum(res[p + "device_ms"] for p, _ in FIR_DIRECTIONS)
+    phase("gan", f"FIR kernel device time of one step, summed over its "
+          f"{len(launches)} launches: {fir_ms:.3f} ms"
+          + ("" if busy is None else
+             f", {100 * fir_ms / busy:.2f}% of the busy {busy:.3f} ms"))
+    rec = next(r for r in records if r["name"] == "upfirdn2d_fir")
+    rec["gan_launches"] = gan_launches
+    rec["gan_step_launches"] = by_dir
+    rec["gan_device_ms"] = {label: res[p + "device_ms"]
+                            for p, label in FIR_DIRECTIONS}
+    rec.update({k: v for k, v in res.items() if k.startswith("bwd2_")})
+    rec["gan_max_abs_err"] = res["max_abs_err"]
+    del G, D, g_opt, d_opt, launches
+    torch.cuda.empty_cache()
+    phase("gan", f"phase 19 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2404,7 +2774,7 @@ def main() -> int:
     net.load_state_dict(fixture_state)
     with fir_calls() as calls:
         net.render(items, training=True, **kw)
-    n_grad = sum(int(grad) for _, grad in calls)
+    n_grad = sum(int(grad) for _, _, grad in calls)
     if (len(calls), n_grad) != (n_fir, n_fir_grad):
         raise AssertionError(f"FIR: {len(calls)} launches ({n_grad} with a "
                              f"gradient) in a train forward, want {n_fir} "
@@ -2673,6 +3043,10 @@ def main() -> int:
     # -- 17. the template stack on a capture of its own -------------------
     torch.cuda.empty_cache()
     template_phase(card, records)
+
+    # -- 19. the StyleGAN2 family and one GAN step at full width ----------
+    torch.cuda.empty_cache()
+    gan_phase(card, records)
 
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -396,7 +396,8 @@ def test_backward_launches_transposed_call(monkeypatch, case):
     """_FIR.backward on the CPU: one launch of the wrapper with the
     transposed arguments, equal bit for bit to that call of the plain
     version, and equal to autograd through the plain version's slices up
-    to float32 summation order."""
+    to float32 summation order; with a cotangent that carries a gradient,
+    the same launch as a differentiable function of it."""
     kern, up, down, pad = CASES[case]
     kv, kh = _taps(kern)
     pad = _pad4(pad)
@@ -419,7 +420,15 @@ def test_backward_launches_transposed_call(monkeypatch, case):
     tfir.upfirdn2d_fir_plain(xp, kv, kh, up, down, pad).backward(g)
     np.testing.assert_allclose(xt.grad.numpy(), xp.grad.numpy(), rtol=0,
                                atol=1e-6 * float(xp.grad.abs().max()))
-    with pytest.raises(RuntimeError):
-        torch.autograd.grad(torch.autograd.grad(
-            tfir.upfirdn2d_fir(xt, kv, kh, up, down, pad), xt, g,
-            create_graph=True)[0].sum(), xt)
+    # with a cotangent that carries a gradient the backward is recorded
+    # (_FIRGrad): the same transposed launch and bits, and its own
+    # gradient is the forward call
+    seen.clear()
+    gr = g.clone().requires_grad_(True)
+    gx, = torch.autograd.grad(tfir.upfirdn2d_fir(xt, kv, kh, up, down, pad),
+                              xt, gr, create_graph=True)
+    _assert_bitwise(gx.detach().numpy(), xt.grad.numpy())
+    gx.backward(torch.ones_like(gx))
+    assert seen == [(kv, kh, up, down, pad),
+                    (kv[::-1], kh[::-1], down, up, gpad),
+                    (kv, kh, up, down, pad)]
