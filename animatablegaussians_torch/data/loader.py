@@ -7,6 +7,12 @@ and copied to the device with ``non_blocking=True``, up to ``prefetch``
 batches ahead. The batch order is the JAX loader's:
 ``np.random.default_rng(seed + epoch)`` shuffles the item indices, epochs
 count from 1, and an incomplete last batch is dropped by default.
+
+For data parallelism each rank makes a loader with its ``rank`` and the
+``world_size``: every rank shuffles alike, a global batch holds
+``world_size * batch_size`` items, and a rank reads only its own block of
+``batch_size`` of them (the JAX loader's global batch reshaped to
+(n_devices, n_scan), driver.py:282-325).
 """
 
 from __future__ import annotations
@@ -39,7 +45,11 @@ class PrefetchLoader:
     def __init__(self, dataset, batch_size: int = 1, shuffle: bool = True,
                  drop_last: bool = True, num_threads: int = 8,
                  prefetch: int = 2, seed: int = 0, device="cuda",
-                 select_keys: Optional[Sequence[str]] = None):
+                 select_keys: Optional[Sequence[str]] = None,
+                 rank: int = 0, world_size: int = 1):
+        if world_size > 1 and not drop_last:
+            raise ValueError("a rank's block of an incomplete global batch "
+                             "would differ in size: drop_last must be on")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -49,20 +59,23 @@ class PrefetchLoader:
         self.seed = seed
         self.device = torch.device(device)
         self.select_keys = select_keys
+        self.rank, self.world_size = rank, world_size
         self.waits: list = []
         self._epoch = 0
 
     def __len__(self):
-        n = len(self.dataset)
-        return n // self.batch_size if self.drop_last else \
-            -(-n // self.batch_size)
+        n, per = len(self.dataset), self.batch_size * self.world_size
+        return n // per if self.drop_last else -(-n // per)
 
     def index_batches(self, epoch: int):
-        """The item indices of each batch of ``epoch`` (1 = the first)."""
+        """The item indices of each of this rank's batches of ``epoch``
+        (1 = the first)."""
         order = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.default_rng(self.seed + epoch).shuffle(order)
-        return [order[b * self.batch_size:(b + 1) * self.batch_size]
+        per = self.batch_size * self.world_size
+        lo = self.rank * self.batch_size
+        return [order[b * per + lo:b * per + lo + self.batch_size]
                 for b in range(len(self))]
 
     def _load_batch(self, idxs) -> dict:

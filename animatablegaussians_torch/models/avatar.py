@@ -14,10 +14,14 @@ same numbers. The mean-hand freeze of the ``test.fix_hand`` configs
 (``generate_mean_hands`` once, then ``hand_vals`` on every render) and the
 pose-map regeneration for novel poses (``get_pose_map``) are here too.
 The model keys read are the JAX package's: ``with_viewdirs``,
-``weight_viewdirs`` (a factor on both view features), ``texel_block`` and
-``channel_max``. Random styles and ``remat`` are refused: the shipped
-configs turn random styles off (``configs/avatarrex_zzr/avatar.yaml:78``)
-and set no ``remat``.
+``weight_viewdirs`` (a factor on both view features), ``texel_block``,
+``channel_max``, ``remat`` (each head recomputes its decoder stages in the
+backward, JAX avatar.py:157) and ``random_style`` (a training render's
+colour head takes the style ``draws["style"]``, U[0, 1)^(1, 512), JAX
+avatar.py:437-442; the position and other heads, and every inference
+render, keep ``constant_style()``). The shipped configs set
+``random_style: false`` (``configs/avatarrex_zzr/avatar.yaml:78``) and no
+``remat``.
 """
 
 from __future__ import annotations
@@ -56,12 +60,7 @@ class AvatarNet(nn.Module):
         lives on the card unless ``device`` says otherwise."""
         super().__init__()
         opt = dict(opt or {})
-        if opt.get("random_style", False):
-            raise NotImplementedError("random_style is not ported (the "
-                                      "shipped configs set it false)")
-        if opt.get("remat", False):
-            raise NotImplementedError("remat is not ported (the shipped "
-                                      "configs do not set it)")
+        self.random_style = bool(opt.get("random_style", False))
         self.with_viewdirs = opt.get("with_viewdirs", True)
         self.weight_viewdirs = float(opt.get("weight_viewdirs", 1.0))
         self.map_h, self.map_w = cano_smpl_map.shape[:2]
@@ -129,7 +128,8 @@ class AvatarNet(nn.Module):
         g = torch.Generator().manual_seed(seed)
         kw = dict(inp_size=self.inp_size, inp_ch=3, out_size=S,
                   style_dim=512, n_mlp=2,
-                  channel_max=int(opt.get("channel_max", 512)), generator=g)
+                  channel_max=int(opt.get("channel_max", 512)),
+                  remat=bool(opt.get("remat", False)), generator=g)
         self.color_net = DualStyleUNet(out_ch=3, **kw)
         self.position_net = DualStyleUNet(out_ch=3, **kw)
         self.other_net = DualStyleUNet(out_ch=8, **kw)
@@ -325,14 +325,16 @@ class AvatarNet(nn.Module):
 
     # -- render (ref: avatar.py:161-239) ----------------------------------
     def _head_outputs(self, pose_maps, front_vd, back_vd,
-                      plain: bool = False):
+                      plain: bool = False, color_style=None):
         """(B, S, S, 3) pose maps -> three raw (B, S, S, 2C) outputs. With
         the constant style the modulated convs share one weight across the
-        batch, so B frames run as one batched conv stack."""
+        batch, so B frames run as one batched conv stack. ``color_style``
+        (1, 512), if given, replaces the colour head's constant style."""
         style = self.constant_style()
         return (self.position_net(style, pose_maps, plain=plain),
                 self.other_net(style, pose_maps, plain=plain),
-                self.color_net(style, pose_maps, view_feature1=front_vd,
+                self.color_net(style if color_style is None else color_style,
+                               pose_maps, view_feature1=front_vd,
                                view_feature2=back_vd, plain=plain))
 
     def _finish_render(self, items, pos_out, other_out, color_out, bg,
@@ -390,8 +392,10 @@ class AvatarNet(nn.Module):
         By default a novel-pose render without autograd. ``training=True``
         records the graph for the train step and leaves out the outputs it
         does not use; ``draws["viewdir_noise"]`` (N, 3), if given, jitters
-        the view directions. ``plain=True`` runs the CNN's FIRs and the
-        splat through the kernels' plain versions."""
+        the view directions, and with ``random_style`` the colour head
+        takes ``draws["style"]`` (1, 512) (without ``draws``, as JAX
+        without an rng, the constant style). ``plain=True`` runs the CNN's
+        FIRs and the splat through the kernels' plain versions."""
         grad = contextlib.nullcontext() if training else torch.no_grad()
         with grad:
             pose_map = items[_pose_key(use_pca)][..., :3]
@@ -401,8 +405,15 @@ class AvatarNet(nn.Module):
                     else None
                 front_vd, back_vd = self._encode_viewdirs(
                     self._viewdir_half_map(items, noise)[None])
+            style = None
+            if self.random_style and training and draws is not None:
+                # no draws is JAX's render without an rng: the constant style
+                if "style" not in draws:
+                    raise KeyError("random_style: the draws carry no "
+                                   "'style' (make_draws(..., style_dim=))")
+                style = draws["style"]
             pos_out, other_out, color_out = self._head_outputs(
-                pose_map[None], front_vd, back_vd, plain)
+                pose_map[None], front_vd, back_vd, plain, style)
             return self._finish_render(items, pos_out, other_out, color_out,
                                        self._bg(bg_color), img_w, img_h,
                                        full=not training, plain=plain,

@@ -1,5 +1,4 @@
-"""DualStyleUNet: pose map -> dual (front/back) Gaussian-map CNN, forward
-only.
+"""DualStyleUNet: pose map -> dual (front/back) Gaussian-map CNN.
 
 Port of ``animatablegaussians_tpu/models/styleunet.py`` as ``nn.Module``s
 whose ``state_dict`` keys are the reference torch checkpoint's names, the
@@ -15,6 +14,11 @@ chains themselves (transposed conv then FIR blur; FIR blur then strided
 conv), which agree up to float32 summation order. Every FIR of the net goes
 through ``ops/upfirdn2d._upfirdn2d`` and so through the FIR kernel on the
 card; ``forward(..., plain=True)`` sends them to its plain version.
+
+``remat=True`` recomputes each decoder stage in the backward instead of
+keeping its activations (``torch.utils.checkpoint``), as the JAX
+``DualStyleUNet(remat=True)`` wraps the same stage in ``jax.checkpoint``
+(styleunet.py:450-454,588-595).
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from animatablegaussians_torch.ops.upfirdn2d import (
@@ -320,23 +325,36 @@ class StyleUNetBase(nn.Module):
         return cond_list
 
     def _decode(self, convs, rgbs, style_at, noise, cond_list, plain,
-                view_feature=None):
+                view_feature=None, remat=False):
         """One branch's ToRGB skip: ``style_at(i)`` the style of layer i
         (the ToRGB after layer i + 1 takes ``style_at(i + 2)``), noise[i]
         its NCHW noise map; ``view_feature`` (NHWC) is added after the
-        fifth level."""
+        fifth level. With ``remat`` and a graph being built, each stage
+        (its two StyledConvs and its ToRGB) is recomputed in the backward
+        rather than kept."""
         n_comb = len(self.comb_convs)
         out = skip = None
         for stage, rgb in enumerate(rgbs):
             i = 2 * stage
+
+            def stage_fn(out, skip, i=i, rgb=rgb):
+                out = convs[i](out, style_at(i), noise[i], plain)
+                out = convs[i + 1](out, style_at(i + 1), noise[i + 1], plain)
+                return out, rgb(out, style_at(i + 2), skip, plain)
+
             if i == 0:
                 out = self.comb_convs[-1](cond_list[-1])
             elif i < 2 * n_comb:
                 out = torch.cat([out, cond_list[-1 - i // 2]], dim=1)
                 out = self.comb_convs[-1 - i // 2](out)
-            out = convs[i](out, style_at(i), noise[i], plain)
-            out = convs[i + 1](out, style_at(i + 1), noise[i + 1], plain)
-            skip = rgb(out, style_at(i + 2), skip, plain)
+            if remat and torch.is_grad_enabled():
+                # the stage draws no random numbers (the noise maps are
+                # fixed buffers), so its recompute needs no RNG state
+                out, skip = torch.utils.checkpoint.checkpoint(
+                    stage_fn, out, skip, use_reentrant=False,
+                    preserve_rng_state=False)
+            else:
+                out, skip = stage_fn(out, skip)
             if view_feature is not None and i == 8:
                 out = out + F.interpolate(
                     view_feature.permute(0, 3, 1, 2), size=out.shape[2:],
@@ -349,9 +367,11 @@ class DualStyleUNet(StyleUNetBase):
                  out_size: int, style_dim: int, n_mlp: int,
                  middle_size: int = 8, channel_multiplier: int = 2,
                  lr_mlp: float = 0.01, channel_max: int = 512,
+                 remat: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         g = generator
+        self.remat = remat
         self.middle_log_size = int(math.log2(middle_size))
         self.log_size = int(math.log2(out_size)) - 1
         if inp_size < 4 * middle_size:
@@ -376,7 +396,8 @@ class DualStyleUNet(StyleUNetBase):
                  for i in range(self.num_layers)]
         cond_list = self._encode(cond_img.permute(0, 3, 1, 2), plain)
         images = [_inverse_haar_transform(self._decode(
-            convs, rgbs, lambda i: latent, noise, cond_list, plain, view))
+            convs, rgbs, lambda i: latent, noise, cond_list, plain, view,
+            self.remat))
             for convs, rgbs, view in ((self.convs1, self.to_rgbs1,
                                        view_feature1),
                                       (self.convs2, self.to_rgbs2,

@@ -17,12 +17,14 @@ main_avatar.py:37-264):
   * the train scans run n steps in a host loop and stack their terms.
 
 The step's random numbers are injected, never drawn inside: ``draws`` holds
-``bg`` (3,), ``viewdir_noise`` (N, 3) and ``crop`` (fv, fu) or None, made
-by ``make_draws`` from a ``torch.Generator`` in production and by a test
-from the JAX package's own key splits; the batched step takes one such
-dict per item. The module, the optimizer, its
-schedule and the step count live in a ``TrainState``, which the steps
-update in place.
+``bg`` (3,), ``viewdir_noise`` (N, 3), ``crop`` (fv, fu) or None and, for a
+net with ``random_style``, ``style`` (1, 512), made by ``make_draws`` from a
+``torch.Generator`` in production and by a test from the JAX package's own
+key splits; the batched step takes one such dict per item and refuses
+``random_style``, whose per-item colour styles would break the heads'
+shared-weight batching (as JAX avatar_trainer.py:226-229). The module,
+the optimizer, its schedule and the step count live in a ``TrainState``,
+which the steps update in place.
 """
 
 from __future__ import annotations
@@ -80,20 +82,36 @@ def make_train_state(net, lr_init: float = 5e-4, iter_num: int = 800_000,
                                            finetune_color))
 
 
-def _apply(state: TrainState) -> None:
+def apply_update(state: TrainState) -> None:
+    """One Adam update from the gradients in ``.grad``, then the schedule
+    and the step count."""
     state.optimizer.step()
     state.scheduler.step()
     state.iter_idx += 1
 
 
-def make_draws(generator: torch.Generator, n_points: int) -> dict:
-    """One step's random numbers from ``generator``, on its device."""
+def make_draws(generator: torch.Generator, n_points: int,
+               style_dim: int = 0) -> dict:
+    """One step's random numbers from ``generator``, on its device; with
+    ``style_dim`` > 0 (a net with ``random_style``: ``draws_style_dim``)
+    also a U[0, 1) colour style (1, style_dim), drawn after the others, so
+    that the rest are the same numbers either way."""
     dev = generator.device
-    return dict(
+    draws = dict(
         bg=torch.rand(3, generator=generator, device=dev),
         viewdir_noise=torch.randn((n_points, 3), generator=generator,
                                   device=dev),
         crop=tuple(torch.rand(2, generator=generator, device=dev).tolist()))
+    if style_dim:
+        draws["style"] = torch.rand((1, style_dim), generator=generator,
+                                    device=dev)
+    return draws
+
+
+def draws_style_dim(net) -> int:
+    """``make_draws``' ``style_dim`` for ``net``: its style width with
+    ``random_style``, else 0."""
+    return net.style_dim if getattr(net, "random_style", False) else 0
 
 
 # ---------------------------------------------------------------------------
@@ -122,7 +140,7 @@ def make_pretrain_step(net):
         lr_ = masked_l1(rotations, g.get_rotation)
         total = lp + lo + ls + lr_
         total.backward()
-        _apply(state)
+        apply_update(state)
         terms = dict(position=lp, opacity=lo, scale=ls, rotation=lr_,
                      total_loss=total)
         return state, {k: v.detach() for k, v in terms.items()}
@@ -241,11 +259,18 @@ def make_train_step(net, *, loss_weight: dict, lpips=None,
 
     def step(state: TrainState, items: dict, draws: dict):
         terms = loss_and_grads(state, items, draws)
-        _apply(state)
+        apply_update(state)
         return state, terms
 
     step.loss_and_grads = loss_and_grads
     return step
+
+
+def _refuse_random_style(net) -> None:
+    if getattr(net, "random_style", False):
+        raise NotImplementedError(
+            "random_style breaks the shared-weight head batching: use the "
+            "batch-1 step")
 
 
 def compute_losses_batched(net, batch: dict, draws: list, iter_idx: int, *,
@@ -262,6 +287,7 @@ def compute_losses_batched(net, batch: dict, draws: list, iter_idx: int, *,
     weights across items, so the three heads run as one batch-B conv stack;
     the select / skin / splat tail runs per item (binning sizes are per
     frame)."""
+    _refuse_random_style(net)
     w = _loss_weights(loss_weight, lpips)
     dev = net.lbs.device
     n_items = len(draws)
@@ -300,7 +326,9 @@ def make_train_step_batched(net, *, loss_weight: dict, lpips=None,
     item), the semantics of B data-parallel devices.
     ``step.loss_and_grads`` leaves the gradients in ``.grad`` without
     updating. As ``make_train_step``, nothing is dropped by binning, so
-    there is no overflow to discard an update for."""
+    there is no overflow to discard an update for. A net with
+    ``random_style`` is refused."""
+    _refuse_random_style(net)
 
     def loss_and_grads(state: TrainState, batch: dict, draws: list) -> dict:
         net.zero_grad(set_to_none=True)
@@ -314,7 +342,7 @@ def make_train_step_batched(net, *, loss_weight: dict, lpips=None,
 
     def step(state: TrainState, batch: dict, draws: list):
         terms = loss_and_grads(state, batch, draws)
-        _apply(state)
+        apply_update(state)
         return state, terms
 
     step.loss_and_grads = loss_and_grads

@@ -4,8 +4,10 @@ the render (with mean hands and pose-map regeneration) and in the B = 2
 batched train step and its scan; then the two entry points a user runs,
 training and animation, on a full-width capture on disk, and the scoring
 of that capture's frames; then the template stack that prepares a
-subject, on a capture of its own; last, the StyleGAN2 family and one GAN
-step with its R1 penalty, the second derivative through the FIR kernel.
+subject, on a capture of its own; the StyleGAN2 family and one GAN step
+with its R1 penalty, the second derivative through the FIR kernel; last,
+the train path's routes: remat, the data-parallel step, random styles and
+the training CLI under torchrun's variables.
 
     python3 chip_smoke.py
 
@@ -210,6 +212,26 @@ itself. Phases, each printing a line, any failure exiting non-zero:
                 times. The FIR record gains ``gan_launches``,
                 ``gan_step_launches``, ``gan_device_ms``,
                 ``gan_max_abs_err`` and the ``bwd2_`` keys.
+ 20. routes   - the train path's routes at full width (routes_phase): (a)
+                remat: a B = 1 and a B = 2 step with remat against the
+                same steps without it under deterministic cuDNN (losses
+                RTOL_REMAT_LOSS, gradients RTOL_REMAT_GRAD a group), the
+                remat step's FIR launches by direction (phase 9's plus
+                the recompute's forwards, remat_fir_count), the render
+                bit for bit; ms/step, device busy ms and peak memory for
+                B = 1, 2, 4, 8 with and without remat (a B without remat
+                skipped, printed, where the peak extrapolated from B = 2
+                and 4 exceeds REMAT_PEAK_LIMIT_GIB); (b) the
+                data-parallel step on a one-rank NCCL group: the
+                reduction leaves the rank's gradients bit for bit, the
+                step against make_train_step (losses bit for bit,
+                gradients RTOL_DP_GRAD), the all-reduce's device time and
+                bytes; (c) a B = 1 step with random_style, kernels against
+                plain=True at phase 9's limits; (d) main_avatar_torch -m
+                train with WORLD_SIZE=1 RANK=0 LOCAL_RANK=0 on phase 15's
+                capture: an NCCL group, the rank on cuda:0, use_dp off,
+                one epoch, epoch_latest's net.pt loaded strictly, the group
+                torn down. The FIR record gains ``remat_step_launches``.
 
 Each kernel's record carries its bound: the least time the card could take
 for the same work, the larger of the bytes it must move over the memory
@@ -402,6 +424,25 @@ GAN_R1_GAMMA, GAN_LR, GAN_BETAS = 10.0, 2e-3, (0.0, 0.99)
 # the host's draw of the default inject_index, seeded alike before each
 # route's forward
 GAN_INJECT_SEED = 19
+# phase 20: the train path's routes. remat's steps against the same steps
+# without it under cuDNN's deterministic algorithms: the forward is the
+# same float32 arithmetic in the same order, so the losses may differ only
+# by the rounding of their last sums; the gradients by the backward
+# blend's atomics, which sum in a run-dependent order (phase 9's events of
+# RTOL_GRAD cannot occur, the forward being identical)
+RTOL_REMAT_LOSS, RTOL_REMAT_GRAD = 1e-6, 1e-4
+# the batch sizes timed with and without remat, warm-up and timed steps
+# each; a B without remat is skipped where the peak extrapolated linearly
+# from the B = 2 and B = 4 readings exceeds this (of the card's 80 GB)
+REMAT_BS, REMAT_WARMUP, REMAT_TIMED = (1, 2, 4, 8), 2, 3
+REMAT_PEAK_LIMIT_GIB = 70.0
+# the data-parallel step on a one-rank NCCL group against the single step
+# (deterministic cuDNN): the losses bit for bit, the gradients as above;
+# the all-reduce's device time over this many calls
+RTOL_DP_GRAD, DP_ALLREDUCE_REPS = 1e-4, 10
+# the launch path: steps of main_avatar_torch -m train under torchrun's
+# variables for a world of one (one epoch of phase 15's capture)
+ROUTES_CLI_STEPS = 2 * DRIVER_FRAMES
 # a generator's forward through the FIR kernel against through its plain
 # version is held bit for bit under cuDNN's deterministic algorithms: every
 # FIR launch of it equals its plain version bit for bit, and deterministic
@@ -532,6 +573,24 @@ def device_profile(fn, top: int = 8, owners_of: int = 4):
     owners = {n: sorted(d.items(), key=lambda kv: -kv[1])[:3]
               for n, d in owners.items()}
     return busy, rows, owners
+
+
+def device_busy(fn):
+    """The summed device time (ms) of the kernels and copies ``fn``
+    launches, as ``device_profile`` sums it, from a profile of the device
+    alone: no host ops, shapes or launching ops, which took most of a
+    profiled B = 8 step's 23-31 s there and leave the sum unchanged
+    (within 0.2%, H100). None if the profiler saw no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy = sum(getattr(e, "self_device_time_total", 0.0)
+               for e in prof.key_averages()
+               if e.device_type != DeviceType.CPU
+               and not getattr(e, "is_user_annotation", False)) / 1e3
+    return busy or None
 
 
 def print_profile(label: str, busy, rows, owners, wall_ms: float) -> None:
@@ -2379,6 +2438,377 @@ def gan_phase(card: str, records: list) -> None:
     phase("gan", f"phase 19 took {time.perf_counter() - t_phase:.1f} s")
 
 
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN's deterministic algorithms for the block."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+def set_remat(net, on: bool) -> None:
+    """The three heads' ``remat``, as ``AvatarNet({"remat": on})`` sets it
+    (models/avatar.py)."""
+    for head in (net.position_net, net.other_net, net.color_net):
+        head.remat = on
+
+
+def remat_fir_count(net) -> int:
+    """FIR forwards that remat's recompute adds to a train step's backward,
+    from the heads' structure: each decoder stage of each branch reruns its
+    up-conv's blur, whose output the backward of the noise injection and
+    leaky ReLU after it needs; the ToRGB's upsample of the skip saves no
+    tensor, so the recompute stops before it (torch.utils.checkpoint's
+    early stop). One a stage and branch: ``len(convs1)`` a head (two
+    StyledConvs a stage, two branches)."""
+    return sum(len(h.convs1) for h in (net.position_net, net.other_net,
+                                       net.color_net))
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def routes_phase(card: str, tmp: str, driver_opt: dict,
+                 records: list) -> None:
+    """Phase 20: the train path's routes at full width. (a) remat: a
+    B = 1 and a B = 2 step with remat against the same steps without it
+    (deterministic cuDNN: losses RTOL_REMAT_LOSS, gradients
+    RTOL_REMAT_GRAD a group), the remat step's FIR launches by direction
+    against ``fir_count`` + ``remat_fir_count``, the render with remat
+    against without it bit for bit; then ms/step (median of REMAT_TIMED
+    after REMAT_WARMUP), the device's busy ms of one step and the peak
+    memory for each B of REMAT_BS with and without remat. (b) the
+    data-parallel step on a one-rank NCCL group: the reduction leaves the
+    rank's gradients bit for bit, the step against make_train_step on the
+    same item and draws (losses bit for bit, gradients RTOL_DP_GRAD), the
+    all-reduce's device time and bytes for the full gradient. (c) a B = 1
+    step with random_style: finite, a style draw that differs between two
+    steps, kernels against plain=True at phase 9's limits. (d)
+    ``main_avatar_torch -m train`` under torchrun's variables for a world
+    of one on phase 15's capture, resuming its epoch_latest: an NCCL
+    group, the rank on cuda:0, use_dp off, one epoch, epoch_latest's
+    net.pt loading strictly into a fresh AvatarNet, the group torn down.
+    The FIR record gains the remat step's launches by direction
+    (``remat_step_launches``)."""
+    import torch.distributed as dist
+    import yaml
+
+    import main_avatar_torch
+    from animatablegaussians_torch.parallel import data_parallel as dp
+    from animatablegaussians_torch.tools import render_fixture as rf
+    from animatablegaussians_torch.training import avatar_trainer as at
+    from animatablegaussians_torch.training import lpips as tlp
+    from animatablegaussians_torch.training.driver import AvatarTrainer
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda:0")
+    W, H = rf.IMG_W, rf.IMG_H
+    net, items = rf.build(dev, keys=rf.TRAIN_KEYS)
+    fixture_state = {k: v.clone() for k, v in net.state_dict().items()}
+    n_pts = net.n_points
+    lpips = tlp.LPIPS(tlp.init_random(rf.LPIPS_SEED), device=dev)
+    tkw = dict(loss_weight=rf.LOSS_WEIGHT, lpips=lpips,
+               patch_size=rf.PATCH_SIZE, img_w=W, img_h=H)
+    gen = torch.Generator(device=dev).manual_seed(20)
+    n_fir, n_fir_grad = fir_count(net)
+    n_remat = remat_fir_count(net)
+
+    def inputs(b: int, seed: int = 0):
+        """(step, batch, draws) for B = b: the single step at B = 1."""
+        if b == 1:
+            return (at.make_train_step(net, **tkw), items,
+                    at.make_draws(gen, n_pts))
+        return (at.make_train_step_batched(net, **tkw),
+                rf.sequence(items, b, seed=seed),
+                [at.make_draws(gen, n_pts) for _ in range(b)])
+
+    # (a) remat against no remat, deterministic cuDNN
+    for b in (1, 2):
+        step, batch, draws = inputs(b)
+        runs = {}
+        for on in (False, True):
+            set_remat(net, on)
+            net.load_state_dict(fixture_state)
+            state = at.make_train_state(net, rf.LR_INIT, rf.ITER_NUM)
+            with cudnn_deterministic(), fir_calls() as calls:
+                terms = step.loss_and_grads(state, batch, draws)
+            by_dir = {label: sum(1 for _, o, _ in calls if o == d)
+                      for d, (_, label) in enumerate(FIR_DIRECTIONS[:2])}
+            runs[on] = (terms, grad_snapshot(net), by_dir)
+            net.zero_grad(set_to_none=True)
+        (t_off, g_off, d_off), (t_on, g_on, d_on) = runs[False], runs[True]
+        loss_err = {k: abs(float(t_on[k]) - float(t_off[k]))
+                    / max(abs(float(t_off[k])), 1e-30) for k in t_off}
+        grad_err = grad_errors(net, g_on, g_off)
+        want_off = {"forward": n_fir, "first derivative": n_fir_grad}
+        want_on = {"forward": n_fir + n_remat,
+                   "first derivative": n_fir_grad}
+        phase("routes", f"remat, B = {b} step 0 against no remat "
+              "(deterministic cuDNN): loss terms " + ", ".join(
+                  f"{k} {float(t_on[k]):.6f} (rel {e:.1e})"
+                  for k, e in loss_err.items())
+              + f" (limit {RTOL_REMAT_LOSS:g}); gradients " + ", ".join(
+                  f"{g} {e:.2e}" for g, e in grad_err.items())
+              + f" (limit {RTOL_REMAT_GRAD:g}); FIR launches by direction "
+              f"{d_on} with remat (want {want_on}: the recompute's "
+              f"{n_remat} forwards), {d_off} without (want {want_off})")
+        if not (max(loss_err.values()) <= RTOL_REMAT_LOSS
+                and max(grad_err.values()) <= RTOL_REMAT_GRAD
+                and d_on == want_on and d_off == want_off):
+            raise AssertionError(f"remat at B = {b}: {loss_err} {grad_err} "
+                                 f"{d_on} {d_off}")
+        if b == 1:
+            rec = next(r for r in records if r["name"] == "upfirdn2d_fir")
+            rec["remat_step_launches"] = d_on
+        del runs, g_on, g_off, step, batch, draws
+    net.load_state_dict(fixture_state)
+    renders = {}
+    for on in (False, True):
+        set_remat(net, on)
+        with cudnn_deterministic():
+            renders[on] = net.render(items, img_w=W, img_h=H)
+    same = all(torch.equal(renders[True][k], renders[False][k])
+               for k in ("rgb_map", "mask_map", "depth_map"))
+    phase("routes", f"render with remat against without: bit for bit "
+          f"{same}")
+    if not same:
+        raise AssertionError("remat changed the render")
+    del renders
+
+    phase("routes", f"(a) comparisons took {time.perf_counter() - t_phase:.1f}"
+          " s")
+    t_part = time.perf_counter()
+    # ms/step, device busy and peak memory by B, without and with remat
+    peaks = {}
+    for b in REMAT_BS:
+        for on in (False, True):
+            if not on and b > 4:
+                est = peaks[4] + (peaks[4] - peaks[2]) * (b - 4) / 2
+                if est > REMAT_PEAK_LIMIT_GIB:
+                    phase("routes", f"B = {b} without remat skipped: peak "
+                          f"extrapolated from B = 2 ({peaks[2]:.2f} GiB) "
+                          f"and B = 4 ({peaks[4]:.2f} GiB) is {est:.2f} "
+                          f"GiB > {REMAT_PEAK_LIMIT_GIB:g} GiB")
+                    continue
+                phase("routes", f"B = {b} without remat: extrapolated peak "
+                      f"{est:.2f} GiB (limit {REMAT_PEAK_LIMIT_GIB:g})")
+            set_remat(net, on)
+            net.load_state_dict(fixture_state)
+            state = at.make_train_state(net, rf.LR_INIT, rf.ITER_NUM)
+            step, batch, _ = inputs(b, seed=b)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t = []
+            for i in range(REMAT_WARMUP + REMAT_TIMED):
+                d = (at.make_draws(gen, n_pts) if b == 1 else
+                     [at.make_draws(gen, n_pts) for _ in range(b)])
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, terms = step(state, batch, d)
+                torch.cuda.synchronize()
+                if i >= REMAT_WARMUP:
+                    t.append((time.perf_counter() - t0) * 1e3)
+                if not all(math.isfinite(float(v)) for v in terms.values()):
+                    raise AssertionError(f"B = {b}, remat {on}: non-finite "
+                                         f"{terms}")
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            if not on:
+                peaks[b] = peak
+            d = (at.make_draws(gen, n_pts) if b == 1 else
+                 [at.make_draws(gen, n_pts) for _ in range(b)])
+            busy = device_busy(lambda: step(state, batch, d))
+            med = statistics.median(t)
+            phase("routes", f"B = {b}, remat {'on ' if on else 'off'}: "
+                  f"median {med:.2f} ms/step ({med / b:.2f} ms/frame) over "
+                  f"{['%.2f' % x for x in t]} after {REMAT_WARMUP} warm-up; "
+                  + ("device busy not measured (torch.profiler saw no "
+                     "device time)" if busy is None else
+                     f"device busy {busy:.3f} ms (idle "
+                     f"{100 * (1 - busy / med):.1f}%)")
+                  + f"; peak memory {peak:.2f} GiB ({card})")
+            del state, step, batch
+    set_remat(net, False)
+    phase("routes", f"(a) the B sweep took {time.perf_counter() - t_part:.1f}"
+          " s")
+    t_part = time.perf_counter()
+
+    # (b) the data-parallel step on a one-rank NCCL group
+    net.load_state_dict(fixture_state)
+    group_dir = tempfile.mkdtemp(prefix="group-", dir=tmp)
+    rank_dev = dp.init_group(dev, 0, 1, "file://" + os.path.join(
+        group_dir, "rendezvous"))
+    try:
+        backend = dist.get_backend()
+        step = at.make_train_step(net, **tkw)
+        dp_step = dp.make_dp_train_step(step)
+        draws = at.make_draws(gen, n_pts)
+        state = at.make_train_state(net, rf.LR_INIT, rf.ITER_NUM)
+        with cudnn_deterministic():
+            t_single = step.loss_and_grads(state, items, draws)
+            g_single = grad_snapshot(net)
+            before, reduce = {}, dp.reduce_gradients
+
+            def spy(net_):
+                before.update(grad_snapshot(net_))
+                return reduce(net_)
+
+            dp.reduce_gradients = spy
+            try:
+                t_dp = dp_step.loss_and_grads(state, items, draws)
+            finally:
+                dp.reduce_gradients = reduce
+        g_dp = grad_snapshot(net)
+        kept = (g_dp.keys() == before.keys()
+                and all(torch.equal(g_dp[n], before[n]) for n in g_dp))
+        loss_same = t_dp.keys() == t_single.keys() and all(
+            torch.equal(t_dp[k], t_single[k]) for k in t_single)
+        grad_err = grad_errors(net, g_dp, g_single)
+        grads = [p.grad for p in net.parameters() if p.grad is not None]
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        n_bytes = flat.numel() * flat.element_size()
+        ar_ms = device_ms(lambda: dist.all_reduce(flat), DP_ALLREDUCE_REPS)
+        # the whole reduction a DP step adds (flatten, all-reduce, copy
+        # back: 656 tensors, host-bound), wall time to a synchronize
+        red_ms = statistics.median(wall_ms(
+            lambda: dp.reduce_gradients(net), DP_ALLREDUCE_REPS))
+        state, terms = dp_step(state, items, at.make_draws(gen, n_pts))
+        phase("routes", f"data parallel on a one-rank {backend} group, rank "
+              f"device {rank_dev}: the reduction left the rank's gradients "
+              f"bit for bit {kept}; against make_train_step on the same "
+              f"item and draws (deterministic cuDNN): losses bit for bit "
+              f"{loss_same}, gradients " + ", ".join(
+                  f"{g} {e:.2e}" for g, e in grad_err.items())
+              + f" (limit {RTOL_DP_GRAD:g}); all-reduce of the full "
+              f"gradient ({n_bytes} bytes, {len(grads)} tensors in one "
+              f"flat buffer): {ar_ms:.4f} ms device time over "
+              f"{DP_ALLREDUCE_REPS} calls; reduce_gradients (flatten, "
+              f"all-reduce, copy back) median {red_ms:.3f} ms wall ({card});"
+              f" a full DP step: "
+              f"total_loss {float(terms['total_loss']):.6f}, iter "
+              f"{state.iter_idx}")
+        if not (backend == "nccl" and rank_dev == dev and kept and loss_same
+                and max(grad_err.values()) <= RTOL_DP_GRAD
+                and state.iter_idx == 1
+                and math.isfinite(float(terms["total_loss"]))):
+            raise AssertionError(f"data parallel: {backend} {kept} "
+                                 f"{loss_same} {grad_err}")
+        del g_single, g_dp, before, flat, grads, state, dp_step
+    finally:
+        dist.destroy_process_group()
+    if dist.is_initialized():
+        raise AssertionError("data parallel: the group is still up")
+    phase("routes", "data parallel: the group is torn down")
+
+    # (c) random_style: one B = 1 step, kernels against plain
+    net.load_state_dict(fixture_state)
+    net.random_style = True
+    sd = at.draws_style_dim(net)
+    d1, d2 = (at.make_draws(gen, n_pts, sd) for _ in range(2))
+    state = at.make_train_state(net, rf.LR_INIT, rf.ITER_NUM)
+    t_plain = at.make_train_step(net, plain=True, **tkw).loss_and_grads(
+        state, items, d1)
+    g_plain = grad_snapshot(net)
+    step = at.make_train_step(net, **tkw)
+    t_kern = step.loss_and_grads(state, items, d1)
+    g_kern = grad_snapshot(net)
+    loss_err = {k: abs(float(t_kern[k]) - float(t_plain[k]))
+                / max(abs(float(t_plain[k])), 1e-30) for k in t_plain}
+    grad_err = grad_errors(net, g_kern, g_plain)
+    state, terms = step(state, items, d2)
+    differs = not torch.equal(d1["style"], d2["style"])
+    phase("routes", f"random_style, B = 1 step 0 kernel path vs plain "
+          "path: loss terms " + ", ".join(
+              f"{k} {float(t_kern[k]):.6f} (rel {e:.1e})"
+              for k, e in loss_err.items())
+          + f" (limit {RTOL_LOSS:g}); gradients " + ", ".join(
+              f"{g} {e:.2e}" for g, e in grad_err.items())
+          + f" (limit {RTOL_GRAD:g}); style {tuple(d1['style'].shape)} "
+          f"in [{float(d1['style'].min()):.4f}, "
+          f"{float(d1['style'].max()):.4f}], differs in the next step "
+          f"{differs}; next step total_loss "
+          f"{float(terms['total_loss']):.6f}")
+    if not (max(loss_err.values()) <= RTOL_LOSS
+            and max(grad_err.values()) <= RTOL_GRAD and differs
+            and all(math.isfinite(float(v)) for v in terms.values())):
+        raise AssertionError(f"random_style: {loss_err} {grad_err}")
+    net.random_style = False
+    del state, step, g_plain, g_kern, net, items, lpips, fixture_state
+    torch.cuda.empty_cache()
+
+    phase("routes", f"(b) and (c) took {time.perf_counter() - t_part:.1f} s")
+
+    # (d) the launch path under torchrun's variables, a world of one
+    opt = {k: dict(v) for k, v in driver_opt.items()}
+    opt["train"].update(
+        net_ckpt_dir=os.path.join(tmp, "ckpt_routes"),
+        prev_ckpt=os.path.join(driver_opt["train"]["net_ckpt_dir"],
+                               "epoch_latest"),
+        eval_interval=10 ** 9, ckpt_interval=dict(epoch=1, batch=10 ** 9))
+    cfg = os.path.join(tmp, "routes.yaml")
+    with open(cfg, "w") as fp:
+        yaml.safe_dump(opt, fp)
+    seen, init_group = {}, dp.init_group
+
+    def spy_init(*args, **kw):
+        rank_dev = init_group(*args, **kw)
+        seen.update(device=rank_dev, backend=dist.get_backend(),
+                    world=dist.get_world_size())
+        return rank_dev
+
+    env = dict(WORLD_SIZE="1", RANK="0", LOCAL_RANK="0",
+               MASTER_ADDR="localhost", MASTER_PORT=str(free_port()))
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    dp.init_group = spy_init
+    t0 = time.perf_counter()
+    try:
+        trainer = main_avatar_torch.main(["-c", cfg, "-m", "train"],
+                                         num_epochs=1)
+    finally:
+        dp.init_group = init_group
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    wall = time.perf_counter() - t0
+    latest = os.path.join(opt["train"]["net_ckpt_dir"], "epoch_latest")
+    ckpt = torch.load(os.path.join(latest, "net.pt"), map_location=dev,
+                      weights_only=True)
+    fresh = AvatarTrainer._build_net(opt["train"]["data"]["data_dir"],
+                                     opt["model"], dev)
+    fresh.load_state_dict(ckpt["avatar_net"], strict=True)
+    names = [k for k in ckpt["avatar_net"] if k.startswith("module.")]
+    phase("routes", f"main_avatar_torch -m train under WORLD_SIZE=1 RANK=0 "
+          f"LOCAL_RANK=0: group {seen}, trainer on {trainer.device}, "
+          f"use_dp {trainer.use_dp}, {len(trainer.terms)} steps to "
+          f"iteration {trainer.iter_idx} in {wall:.1f} s; epoch_latest "
+          f"net.pt loads strictly into a fresh AvatarNet "
+          f"({len(ckpt['avatar_net'])} keys, {len(names)} 'module.'); "
+          f"group torn down {not dist.is_initialized()}")
+    if not (seen.get("backend") == "nccl" and seen.get("world") == 1
+            and seen.get("device") == dev and trainer.device == dev
+            and not trainer.use_dp and trainer.rank == 0
+            and len(trainer.terms) == ROUTES_CLI_STEPS
+            and ckpt["iter_idx"] == trainer.iter_idx and not names
+            and not dist.is_initialized()
+            and all(math.isfinite(v) for t in trainer.terms
+                    for v in t.values())):
+        raise AssertionError(f"launch path: {seen} {trainer.device} "
+                             f"{trainer.use_dp} {len(trainer.terms)} steps")
+    del trainer, fresh, ckpt
+    torch.cuda.empty_cache()
+    phase("routes", f"phase 20 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3037,16 +3467,20 @@ def main() -> int:
                       records)
         torch.cuda.empty_cache()
         eval_phase(card, tmp, driver_opt, records)
+
+        # -- 17. the template stack on a capture of its own ---------------
+        torch.cuda.empty_cache()
+        template_phase(card, records)
+
+        # -- 19. the StyleGAN2 family and one GAN step at full width ------
+        torch.cuda.empty_cache()
+        gan_phase(card, records)
+
+        # -- 20. the train path's routes (on phase 15's capture) ----------
+        torch.cuda.empty_cache()
+        routes_phase(card, tmp, driver_opt, records)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-
-    # -- 17. the template stack on a capture of its own -------------------
-    torch.cuda.empty_cache()
-    template_phase(card, records)
-
-    # -- 19. the StyleGAN2 family and one GAN step at full width ----------
-    torch.cuda.empty_cache()
-    gan_phase(card, records)
 
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,9 @@
 the CPU: AvatarNet.render and render_sequence with the JAX weights carried
 across by params_from_jax, the pieces of the slice one by one, the mean-hand
 render and the pose-map regeneration, the import_avatar_params round trip,
-the model keys ``weight_viewdirs`` and ``texel_block`` (and the refusal of
-``remat``), and a subprocess check that the port renders without importing
-jax."""
+the model keys ``weight_viewdirs`` and ``texel_block`` (``remat`` and
+``random_style`` are held in tests/test_torch_remat.py), and a subprocess
+check that the port renders without importing jax."""
 
 import dataclasses
 import os
@@ -359,12 +359,6 @@ def test_texel_block_matches_jax(pair, texel_block):
     for k in ("rgb_map", "mask_map", "depth_map"):
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
                                    atol=ATOL, err_msg=k)
-
-
-def test_remat_is_refused():
-    pos, nml, lbs = jsyn.make_cano_map(map_h=MAP_H)
-    with pytest.raises(NotImplementedError, match="remat"):
-        TAvatarNet({"remat": True}, pos, lbs, cano_nml_map=nml, device="cpu")
 
 
 def test_port_renders_without_jax():

@@ -478,9 +478,3 @@ def test_port_trains_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("ok")
-
-
-def test_random_style_is_refused(tiny):
-    with pytest.raises(NotImplementedError, match="random_style"):
-        TAvatarNet(dict(tiny["opt"], random_style=True), tiny["pos"],
-                   tiny["lbs"], cano_nml_map=tiny["nml"], device="cpu")
