@@ -17,17 +17,8 @@ from torch import nn
 
 from animatablegaussians_torch.ops.knn import knn
 from animatablegaussians_torch.ops.quat import normalize as quat_normalize
+from animatablegaussians_torch.ops.sh import rgb_to_sh, sh_to_rgb
 from animatablegaussians_torch.utils import ply as ply_io
-
-SH_C0 = 0.28209479177387814
-
-
-def rgb_to_sh(rgb):
-    return (rgb - 0.5) / SH_C0
-
-
-def sh_to_rgb(sh):
-    return sh * SH_C0 + 0.5
 
 
 def inverse_sigmoid(x):
@@ -62,6 +53,19 @@ class GaussianParams(nn.Module):
     @property
     def get_opacity(self):
         return torch.sigmoid(self.opacity)
+
+    @property
+    def get_xyz(self):
+        return self.xyz
+
+    @property
+    def get_features(self):
+        """(N, (deg+1)^2, 3) SH coefficients: DC, then the rest."""
+        return torch.cat([self.features_dc, self.features_rest], dim=1)
+
+    @property
+    def num_points(self) -> int:
+        return self.xyz.shape[0]
 
 
 @torch.no_grad()

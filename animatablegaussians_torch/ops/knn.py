@@ -1,6 +1,6 @@
 """Brute-force k-nearest-neighbour search, chunked over queries.
 
-Port of ``animatablegaussians_tpu/ops/knn.py:19-44``. Squared distances use
+Port of ``animatablegaussians_tpu/ops/knn.py:19-50``. Squared distances use
 the same ``|q|^2 + |r|^2 - 2 q.r`` expansion in float32, so the scales that
 ``create_from_pcd`` derives from them track the JAX package.
 """
@@ -27,3 +27,9 @@ def knn(query: torch.Tensor, ref: torch.Tensor, k: int = 4,
         idxs.append(i)
     d2 = torch.cat(d2s)
     return torch.clamp(d2, min=0.0), torch.cat(idxs).to(torch.int32)
+
+
+def knn_gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Features of the KNN indices: (M, C), (Q, k) -> (Q, k, C)
+    (ref: utils/knn.py:4-15)."""
+    return x[idx.long()]

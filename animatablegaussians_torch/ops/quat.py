@@ -1,8 +1,9 @@
 """Quaternion utilities (w, x, y, z convention), batched over leading axes.
 
 Port of ``animatablegaussians_tpu/ops/quat.py`` (the quaternion helpers,
-``axis_angle_to_mat`` and ``axis_angle_to_quat``): the same formulas in the
-same order, so the two agree to float32 rounding.
+``quat_mul``, ``rotate_vec``, ``axis_angle_to_mat`` and
+``axis_angle_to_quat``): the same formulas in the same order, so the two
+agree to float32 rounding.
 """
 
 from __future__ import annotations
@@ -63,6 +64,18 @@ def mat_to_quat(m: torch.Tensor) -> torch.Tensor:
     return normalize(q)
 
 
+def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamilton product of wxyz quaternions (..., 4)."""
+    aw, ax, ay, az = a[..., 0], a[..., 1], a[..., 2], a[..., 3]
+    bw, bx, by, bz = b[..., 0], b[..., 1], b[..., 2], b[..., 3]
+    return torch.stack([
+        aw * bw - ax * bx - ay * by - az * bz,
+        aw * bx + ax * bw + ay * bz - az * by,
+        aw * by - ax * bz + ay * bw + az * bx,
+        aw * bz + ax * by - ay * bx + az * bw,
+    ], dim=-1)
+
+
 def axis_angle_to_mat(aa: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     """Axis-angle (..., 3) -> rotation matrix (..., 3, 3) (Rodrigues)."""
     angle = torch.linalg.norm(aa, dim=-1, keepdim=True)
@@ -77,6 +90,14 @@ def axis_angle_to_mat(aa: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
         z * x * C - y * s, z * y * C + x * s, z * z * C + c,
     ], dim=-1)
     return m.reshape(aa.shape[:-1] + (3, 3))
+
+
+def rotate_vec(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate vectors v (..., 3) by unit quaternions q (..., 4)."""
+    qvec = q[..., 1:]
+    uv = torch.linalg.cross(qvec, v, dim=-1)
+    uuv = torch.linalg.cross(qvec, uv, dim=-1)
+    return v + 2.0 * (q[..., 0:1] * uv + uuv)
 
 
 def axis_angle_to_quat(aa: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:

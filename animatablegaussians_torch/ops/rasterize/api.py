@@ -1,8 +1,10 @@
 """Public rasterization API, differentiable.
 
-Port of ``animatablegaussians_tpu/ops/rasterize/api.py:66-78,206-344,370-391``
+Port of ``animatablegaussians_tpu/ops/rasterize/api.py:66-78,206-391``
 with the same output contract: colour, depth, alpha mask, radii, visibility,
-screen-space means and the pair count.
+screen-space means and the pair count. Colours come precomputed
+(``colors``) or from SH coefficients (``shs``), evaluated per frame along
+the camera-to-point directions (``precompute_sh_colors``).
 
 Composition: preprocess -> packed per-Gaussian rows -> binning (pair
 expansion kernel + sort) -> tile blend kernel -> background blend. The
@@ -17,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from ..sh import eval_sh
 from .binning import bin_gaussians
 from .blend import TILE, BlendTiles
 from .preprocess import preprocess
@@ -61,16 +64,23 @@ def _full_projection(extr, intr, img_w: int, img_h: int,
 
 def render(means3d, scales, rotations, opacities, colors, bg_color, extr,
            intr, img_w: int, img_h: int, scale_modifier: float = 1.0,
-           valid_mask=None, plain: bool = False) -> dict:
+           valid_mask=None, plain: bool = False, shs=None,
+           max_sh_degree: int = 0) -> dict:
     """means3d (N, 3) world space; scales (N, 3) activated; rotations
-    (N, 4) unit wxyz; opacities (N,) or (N, 1); colors (N, 3); bg_color
-    (3,); extr (4, 4) world->view; intr (3, 3). ``valid_mask`` (N,) bool
-    marks points that are never binned (block-packing pads).
+    (N, 4) unit wxyz; opacities (N,) or (N, 1); colors (N, 3), or None
+    with ``shs`` (N, (deg+1)^2, 3) SH coefficients of degree
+    ``max_sh_degree``; bg_color (3,); extr (4, 4) world->view; intr (3, 3).
+    ``valid_mask`` (N,) bool marks points that are never binned
+    (block-packing pads).
 
     ``plain=True`` runs the kernels' plain PyTorch versions, forward and
     backward, on whatever device the tensors are on: the reference the
     kernels are checked against on the GPU. On the CPU both settings run
     the plain versions."""
+    if (colors is None) == (shs is None):
+        raise ValueError("render takes colors or shs, not both or neither")
+    if colors is None:
+        colors = precompute_sh_colors(shs, max_sh_degree, means3d, extr)
     tan_fovx = img_w / (2.0 * intr[0, 0])
     tan_fovy = img_h / (2.0 * intr[1, 1])
     viewmatrix, projmatrix = _full_projection(extr, intr, img_w, img_h)
@@ -95,3 +105,24 @@ def render(means3d, scales, rotations, opacities, colors, bg_color, extr,
     return dict(render=color, depth=depth, mask=1.0 - t_final,
                 radii=pre.radii, visibility_filter=pre.radii > 0,
                 means2d=pre.means2d, n_pairs=bins.n_pairs)
+
+
+def precompute_sh_colors(shs, max_sh_degree: int, means3d, extr):
+    """(N, 3) RGB of SH coefficients ``shs`` (N, (deg+1)^2, 3) along the
+    camera-to-point directions (ref: gaussian_renderer.py:78-84). The clamp
+    at 0 is ``torch.maximum``, whose gradient splits in half at a tie, as
+    JAX's ``jnp.maximum`` does (``clamp`` would pass all of it)."""
+    cam_center = -extr[:3, :3].T @ extr[:3, 3]
+    dirs = means3d - cam_center[None]
+    dirs = dirs / torch.clamp(torch.linalg.norm(dirs, dim=-1, keepdim=True),
+                              min=1e-8)
+    rgb = eval_sh(max_sh_degree, shs.transpose(-1, -2), dirs)
+    return torch.maximum(rgb + 0.5, rgb.new_zeros(()))
+
+
+def mark_visible(means3d, extr, znear: float = 0.2):
+    """(N,) bool: the points in front of the near plane, the reference's
+    ``markVisible`` (diff_gaussian_rasterization_depth_alpha/__init__.py:
+    179-188; a near-plane cull only, as auxiliary.h's in_frustum)."""
+    view = means3d @ extr[:3, :3].T + extr[:3, 3]
+    return view[:, 2] > znear

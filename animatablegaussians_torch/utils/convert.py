@@ -1,6 +1,7 @@
 """Carry the JAX package's parameters across to the port.
 
-Adam's state needs no carrying: both packages start it from zero moments.
+Adam's state needs no carrying where both packages start it from zero
+moments.
 
 ``params_from_jax`` is the inverse of
 ``animatablegaussians_tpu/training/checkpoint.py::import_avatar_params``
@@ -16,6 +17,10 @@ CNN keys are the reference torch checkpoint's names. Layouts: HWIO conv ->
 ``density.beta``, ``left_hand`` / ``right_hand`` lists) and returns the
 port ``TemplateNet``'s ``state_dict``.
 
+``gaussian_params_from_jax`` makes a port ``GaussianParams`` of a standalone
+JAX ``GaussianParams`` (numpy leaves), and ``adam_state_from_optax`` loads
+optax's Adam moments for it into a ``torch.optim.Adam``.
+
 ``lpips_from_jax`` and ``inception_from_jax`` carry the LPIPS and the
 Inception trunk's weights across; ``dual_styleunet_v2_state``,
 ``swgan_unet_state``, ``style_generator_state`` and ``discriminator_state``
@@ -28,6 +33,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from animatablegaussians_torch.models.gaussian_model import GaussianParams
 
 
 def _t(a) -> torch.Tensor:
@@ -217,3 +224,22 @@ def inception_from_jax(params_np: dict) -> dict:
         sd[f"{name}.weight"] = _conv_w(p["w"])
         sd[f"{name}.bias"] = _t(p["b"])
     return sd
+
+
+def gaussian_params_from_jax(p_np) -> GaussianParams:
+    """A JAX ``GaussianParams`` with numpy leaves -> the port
+    ``GaussianParams``, on the CPU."""
+    return GaussianParams(**{f: _t(getattr(p_np, f))
+                             for f in GaussianParams.FIELDS})
+
+
+def adam_state_from_optax(optimizer, g, count, mu, nu) -> None:
+    """Set ``optimizer``'s (a ``torch.optim.Adam`` over ``g``'s parameters)
+    state to optax's ``ScaleByAdamState``: ``count`` steps taken and the
+    moments ``mu`` and ``nu`` (JAX ``GaussianParams`` with numpy leaves)."""
+    for f in g.FIELDS:
+        p = getattr(g, f)
+        optimizer.state[p] = {
+            "step": torch.tensor(float(count), dtype=torch.float32),
+            "exp_avg": _t(getattr(mu, f)).to(p.device),
+            "exp_avg_sq": _t(getattr(nu, f)).to(p.device)}

@@ -5,9 +5,10 @@ batched train step and its scan; then the two entry points a user runs,
 training and animation, on a full-width capture on disk, and the scoring
 of that capture's frames; then the template stack that prepares a
 subject, on a capture of its own; the StyleGAN2 family and one GAN step
-with its R1 penalty, the second derivative through the FIR kernel; last,
-the train path's routes: remat, the data-parallel step, random styles and
-the training CLI under torchrun's variables.
+with its R1 penalty, the second derivative through the FIR kernel; the
+train path's routes: remat, the data-parallel step, random styles and
+the training CLI under torchrun's variables; last, the generic 3DGS
+layer: SH colours, densification and its Adam surgery.
 
     python3 chip_smoke.py
 
@@ -232,6 +233,32 @@ itself. Phases, each printing a line, any failure exiting non-zero:
                 capture: an NCCL group, the rank on cuda:0, use_dp off,
                 one epoch, epoch_latest's net.pt loaded strictly, the group
                 torn down. The FIR record gains ``remat_step_launches``.
+ 21. gs3d     - the generic 3DGS layer on phase 3's 531,520 posed
+                Gaussians at 1500x2048 (gs3d_phase), SH degree 3 (the DC
+                term from the seeded colours, the rest seeded normals):
+                (a) render(shs=, max_sh_degree=3) through the kernels
+                against plain=True (ATOL_BLEND), n_pairs equal to the
+                colors= route's on the same geometry, finite, covered,
+                precompute_sh_colors on the card against the CPU; (b) one
+                Adam step (the reference's learning rates) on seeded
+                image, depth and mask cotangents, each field's gradient
+                through blend_bwd.cu against plain=True (GS_RTOL_GRAD); (c)
+                a densification round (clone, split, prune with the
+                step's radii, reset_opacity; models/densify.py) from the
+                step's view-space gradient norms, on the card and on the
+                CPU with the same norms and split draws: counts equal,
+                values within GS_RTOL_ROUND; (d) the Adam surgery after
+                each step (grow_adam_state: kept rows' moments bit for
+                bit, appended rows' zero, step kept), a step through the
+                kernels against plain=True on the scene after the prune
+                (opaque, at the new N) and after the reset, and one more
+                Adam step; (e) mark_visible on the card against the CPU;
+                (f) render ms with SH against colors=, forward + backward
+                ms, the round's and the surgery's ms, peak memory, and a
+                device profile of one step at each N (busy ms, idle
+                share, the kernels' device ms). Each record
+                gains ``gs3d_launches`` (counters reset just before (a),
+                read after (d)).
 
 Each kernel's record carries its bound: the least time the card could take
 for the same work, the larger of the bytes it must move over the memory
@@ -443,6 +470,55 @@ RTOL_DP_GRAD, DP_ALLREDUCE_REPS = 1e-4, 10
 # the launch path: steps of main_avatar_torch -m train under torchrun's
 # variables for a world of one (one epoch of phase 15's capture)
 ROUTES_CLI_STEPS = 2 * DRIVER_FRAMES
+# phase 21: the generic 3DGS layer on phase 3's posed Gaussians. SH degree
+# 3, the 3DGS default (16 coefficients a channel): the DC term from the
+# seeded colours, the rest N(0, GS_REST_STD) from a seeded generator. The
+# fixture's create_from_pcd scales are the same on the three axes, where a
+# rotation moves nothing and its gradient is rounding noise (kernel and
+# plain read 0.80 apart in relative L2 on the H100); N(0, GS_SCALE_JITTER)
+# added to each log-scale makes the Gaussians anisotropic, as a fitted
+# scene's are
+GS_SH_DEGREE, GS_REST_STD, GS_SCALE_JITTER, GS_SEED = 3, 0.1, 0.2, 21
+# Adam with the 3DGS reference's learning rates and eps (ref:
+# arguments/__init__.py OptimizationParams, gaussian_model.py
+# training_setup): position 0.00016 times the scene extent (set per run),
+# the DC term 0.0025, the rest 0.0025 / 20, opacity 0.05, scaling 0.005,
+# rotation 0.001
+GS_LR = dict(features_dc=2.5e-3, features_rest=2.5e-3 / 20, opacity=0.05,
+             scaling=5e-3, rotation=1e-3)
+GS_XYZ_LR, GS_EPS = 1.6e-4, 1e-15
+# the densification round: the gradient threshold is this quantile of the
+# visible Gaussians' view-space gradient norms, lowered to the median norm
+# of the visible large ones (max scale > GS_PERCENT_DENSE x the extent), and
+# of the small ones, where that is lower, so that both the split and the
+# clone select rows (the fixture has few large Gaussians: by a k-d tree's
+# distances, 8 of its 517,832 at 1024^2); the prune's limits (the
+# reference's defaults: min opacity 0.005, 20 pixels on screen)
+GS_GRAD_QUANTILE, GS_PERCENT_DENSE = 0.9, 0.01
+GS_MIN_OPACITY, GS_MAX_SCREEN, GS_SPLIT_SEED = 0.005, 20, 22
+# samples a split Gaussian becomes (the reference's N = 2)
+GS_N_SPLIT = 2
+# the port's kernels on phase 21's path, as the device profile names them
+GS_KERNEL_NAMES = ("expand_pairs_kernel", "tile_order_kernel",
+                   "blend_forward_kernel", "blend_backward_kernel")
+# the card against the CPU on the same inputs, each value relative to the
+# largest magnitude of its field (floor 1): the round's fields pass
+# through exp and log (scaling) and sigmoid and its inverse (opacity),
+# whose last bits the two devices' libm round apart; the SH colours (the
+# norms of the directions, summed in another order)
+GS_RTOL_ROUND, GS_ATOL_SH = 1e-6, 1e-6
+# phase 21's gradients, kernel path against plain path, relative L2 per
+# field. No CNN is on this path (RTOL_GRAD's events do not occur): only
+# the backward kernel's atomics and the plain version's scan order set
+# the two apart. On the H100 the fields read 1.2e-7 to 1.4e-6, at 531,520
+# and 790,332 Gaussians; this limit keeps two orders of magnitude above
+# that and still fails a fault of 0.01% in any field's gradient
+GS_RTOL_GRAD = 1e-4
+# kernel launches of phase 21's checked part: the SH render and the
+# colors= render (a), the kernel step (b), and the steps after the prune
+# and after the reset (d)
+GS_LAUNCHES = dict(expand_pairs=5, blend_tiles=5, blend_backward=3)
+GS_TIMED = 5
 # a generator's forward through the FIR kernel against through its plain
 # version is held bit for bit under cuDNN's deterministic algorithms: every
 # FIR launch of it equals its plain version bit for bit, and deterministic
@@ -2809,6 +2885,473 @@ def routes_phase(card: str, tmp: str, driver_opt: dict,
     phase("routes", f"phase 20 took {time.perf_counter() - t_phase:.1f} s")
 
 
+def gs3d_inputs(net, items) -> dict:
+    """Phase 21's scene, on the CPU: phase 3's posed Gaussians and seeded
+    colours (``splat_inputs``), the raw canonical scaling and opacity
+    they carry, the pad mask and the camera."""
+    with torch.no_grad():
+        means3d, _, rots, _, colors = splat_inputs(net, items)
+        g = net.cano_gaussian
+        base = dict(xyz=means3d, rotation=rots, colors=colors,
+                    scaling=g.scaling, opacity=g.opacity, valid=net.valid,
+                    extr=items["extr"], intr=items["intr"])
+        return {k: v.detach().cpu() for k, v in base.items()}
+
+
+def gs3d_scene(base: dict, dev):
+    """A 3DGS ``GaussianParams`` on ``dev`` from ``gs3d_inputs``: SH degree
+    ``GS_SH_DEGREE``, the DC term ``rgb_to_sh`` of the colours, the rest
+    seeded normals; the log-scales jittered by ``GS_SCALE_JITTER``."""
+    from animatablegaussians_torch.models.gaussian_model import GaussianParams
+    from animatablegaussians_torch.ops.sh import rgb_to_sh
+    n = base["xyz"].shape[0]
+    gen = torch.Generator(device=dev).manual_seed(GS_SEED)
+    rest = GS_REST_STD * torch.randn((n, (GS_SH_DEGREE + 1) ** 2 - 1, 3),
+                                     generator=gen, device=dev)
+    jitter = GS_SCALE_JITTER * torch.randn((n, 3), generator=gen,
+                                           device=dev)
+    to = lambda k: base[k].to(dev).clone()
+    return GaussianParams(xyz=to("xyz"),
+                          features_dc=rgb_to_sh(to("colors"))[:, None, :],
+                          features_rest=rest, scaling=to("scaling") + jitter,
+                          rotation=to("rotation"), opacity=to("opacity"))
+
+
+def gs3d_render(scene, valid, cam, img_w: int, img_h: int, plain=False,
+                colors=None) -> dict:
+    """``render`` of the scene: its SH colours, or ``colors``."""
+    from animatablegaussians_torch.ops.rasterize.api import render
+    bg = torch.ones(3, device=scene.xyz.device)
+    return render(scene.get_xyz, scene.get_scaling, scene.get_rotation,
+                  scene.get_opacity, colors, bg, cam["extr"], cam["intr"],
+                  img_w, img_h, valid_mask=valid, plain=plain,
+                  shs=None if colors is not None else scene.get_features,
+                  max_sh_degree=GS_SH_DEGREE)
+
+
+def gs3d_step(scene, valid, cam, img_w: int, img_h: int, cots,
+              plain=False):
+    """(output, gradients of each field, view-space gradient norms) of
+    one backward of the image, depth and mask against the cotangents
+    ``cots``; the gradients stay in the fields' ``.grad``."""
+    scene.zero_grad(set_to_none=True)
+    out = gs3d_render(scene, valid, cam, img_w, img_h, plain=plain)
+    out["means2d"].retain_grad()
+    loss = sum((out[k] * c).sum()
+               for k, c in zip(("render", "depth", "mask"), cots))
+    loss.backward()
+    grads = {f: getattr(scene, f).grad.clone() for f in scene.FIELDS}
+    return out, grads, out["means2d"].grad.norm(dim=-1)
+
+
+def gs3d_compare(out_k, out_p, grads_k=None, grads_p=None) -> dict:
+    """Kernel path against plain path: the images at ``ATOL_BLEND``, each
+    field's gradient (relative L2) at ``GS_RTOL_GRAD``; raises beyond."""
+    errs = {n: float((out_k[k] - out_p[k]).detach().abs().max())
+            for n, k in (("color", "render"), ("depth", "depth"),
+                         ("alpha", "mask"))}
+    bad = {n: e for n, e in errs.items() if not e <= ATOL_BLEND[n]}
+    if bad or out_k["n_pairs"] != out_p["n_pairs"]:
+        raise AssertionError(f"gs3d: kernel path disagrees with plain: "
+                             f"{errs}, n_pairs {out_k['n_pairs']} vs "
+                             f"{out_p['n_pairs']}")
+    for f, g in (grads_p or {}).items():
+        errs[f] = float((grads_k[f] - g).norm() / g.norm())
+    bad = {f: e for f, e in errs.items()
+           if f not in ATOL_BLEND and not e <= GS_RTOL_GRAD}
+    if bad:
+        raise AssertionError(f"gs3d: gradients apart beyond "
+                             f"{GS_RTOL_GRAD:g}: {errs}")
+    return errs
+
+
+def gs3d_optimizer(scene, extent: float):
+    return torch.optim.Adam(
+        [{"params": [getattr(scene, f)],
+          "lr": GS_XYZ_LR * extent if f == "xyz" else GS_LR[f]}
+         for f in scene.FIELDS], eps=GS_EPS)
+
+
+def follow(x, kept, n_new: int, fill):
+    """Per-row values ``x`` of the old rows on the new rows: the kept rows'
+    in order, then ``fill`` on the appended rows."""
+    x = x[kept]
+    tail = torch.full((n_new - x.shape[0],) + tuple(x.shape[1:]), fill,
+                      dtype=x.dtype, device=x.device)
+    return torch.cat([x, tail])
+
+
+def check_surgery(opt, old, new, kept, before: dict, reset=()) -> None:
+    """After ``grow_adam_state``: ``opt`` holds ``new``'s parameters and
+    none of ``old``'s; a kept row's moments are bit for bit its old ones,
+    an appended row's are zero (every row's for a field in ``reset``), and
+    each ``step`` is the one before."""
+    held = {id(p) for grp in opt.param_groups for p in grp["params"]}
+    for f in new.FIELDS:
+        p_new = getattr(new, f)
+        if id(p_new) not in held or id(getattr(old, f)) in held:
+            raise AssertionError(f"surgery: {f} not rebound")
+        st, was = opt.state[p_new], before[f]
+        n_kept = int(kept.sum())
+        for k in ("exp_avg", "exp_avg_sq"):
+            m = st[k]
+            if m.shape != p_new.shape:
+                raise AssertionError(f"surgery: {f} {k} {tuple(m.shape)}")
+            if f in reset:
+                ok = not m.any()
+            else:
+                ok = (torch.equal(m[:n_kept], was[k][kept])
+                      and not m[n_kept:].any())
+            if not ok:
+                raise AssertionError(f"surgery: {f} {k} moments misplaced")
+        if not torch.equal(st["step"], was["step"]):
+            raise AssertionError(f"surgery: {f} step {st['step']} "
+                                 f"against {was['step']}")
+
+
+def split_noise(scene, norms, thr: float, extent: float, gen) -> torch.Tensor:
+    """The split's (m n_split, 3) standard normals for the rows that
+    ``densify_and_split`` selects (gradient norm at ``thr`` or above and
+    max scale above ``GS_PERCENT_DENSE`` x ``extent``), drawn from the CPU
+    generator ``gen`` and copied to the scene's device, so that the card
+    and the CPU split alike."""
+    big = torch.max(scene.get_scaling, dim=1).values \
+        > GS_PERCENT_DENSE * extent
+    m = int(((norms >= thr) & big).sum())
+    return torch.randn((m * GS_N_SPLIT, 3), generator=gen).to(
+        scene.xyz.device)
+
+
+def densify_round(scene, norms, radii, valid, thr: float, extent: float,
+                  opt=None):
+    """Phase 21's densification round: clone, split (its normals from
+    ``split_noise`` with a CPU generator seeded ``GS_SPLIT_SEED``, drawn
+    before the step's clock starts), prune with ``radii`` and ``extent``,
+    reset_opacity. The per-row inputs follow the rows: an appended row has
+    gradient norm 0 (as the reference pads it), radius 0 (its
+    ``max_radii2D``) and is valid (it copies a valid row). With ``opt``,
+    each step's ``grow_adam_state`` is checked (``check_surgery``).
+    -> (scene, valid, a record per step: N before and after, rows kept and
+    appended, the scene and its valid rows after the step, ms of the step
+    and of its surgery)."""
+    from animatablegaussians_torch.models import densify as D
+    sync = (torch.cuda.synchronize if scene.xyz.device.type == "cuda"
+            else (lambda: None))
+    gen = torch.Generator().manual_seed(GS_SPLIT_SEED)
+    rows = dict(norms=norms, radii=radii, valid=valid)
+    steps = []
+    # each step -> (new scene, kept mask; None where every row is kept)
+    plan = (
+        ("clone", lambda s, _: (D.densify_and_clone(
+            s, rows["norms"], thr, extent, GS_PERCENT_DENSE), None), ()),
+        ("split", lambda s, noise: D.densify_and_split(
+            s, rows["norms"], thr, extent, n_split=GS_N_SPLIT,
+            percent_dense=GS_PERCENT_DENSE, noise=noise, return_kept=True),
+         ()),
+        ("prune", lambda s, _: D.prune(
+            s, GS_MIN_OPACITY, extent, GS_MAX_SCREEN, rows["radii"],
+            return_kept=True), ()),
+        ("reset_opacity", lambda s, _: (D.reset_opacity(s), None),
+         ("opacity",)))
+    for name, fn, reset in plan:
+        noise = (split_noise(scene, rows["norms"], thr, extent, gen)
+                 if name == "split" else None)
+        sync()
+        t0 = time.perf_counter()
+        new, kept = fn(scene, noise)
+        sync()
+        t1 = time.perf_counter()
+        surgery_ms = None
+        if opt is not None:
+            before = {f: dict(opt.state[getattr(scene, f)])
+                      for f in scene.FIELDS}
+            t2 = time.perf_counter()
+            D.grow_adam_state(opt, scene, new, kept, reset=reset)
+            sync()
+            surgery_ms = (time.perf_counter() - t2) * 1e3
+        if kept is None:
+            kept = torch.ones(scene.num_points, dtype=torch.bool,
+                              device=scene.xyz.device)
+        if opt is not None:
+            check_surgery(opt, scene, new, kept, before, reset)
+        n_new = new.num_points
+        rows = dict(norms=follow(rows["norms"], kept, n_new, 0.0),
+                    radii=follow(rows["radii"], kept, n_new, 0),
+                    valid=follow(rows["valid"], kept, n_new, True))
+        n_kept = int(kept.sum())
+        steps.append(dict(step=name, n_before=scene.num_points,
+                          n_after=n_new, kept=n_kept,
+                          appended=n_new - n_kept, scene=new,
+                          valid=rows["valid"], ms=(t1 - t0) * 1e3,
+                          surgery_ms=surgery_ms))
+        scene = new
+    return scene, rows["valid"], steps
+
+
+def gs3d_threshold(scene, norms, radii, extent: float) -> float:
+    """``GS_GRAD_QUANTILE`` of the visible Gaussians' gradient norms,
+    lowered to the median of the visible large ones' and of the small
+    ones' where lower (zero norms left out); raises if either set is
+    empty."""
+    big = torch.max(scene.get_scaling, dim=1).values \
+        > GS_PERCENT_DENSE * extent
+    live = (radii > 0) & (norms > 0)
+    thr = float(torch.quantile(norms[live], GS_GRAD_QUANTILE))
+    for name, sel in (("large", live & big), ("small", live & ~big)):
+        if not bool(sel.any()):
+            raise AssertionError(f"gs3d: no visible {name} Gaussian with a "
+                                 "gradient: the round cannot both clone "
+                                 "and split")
+        thr = min(thr, float(torch.median(norms[sel])))
+    return thr
+
+
+def gs3d_drive(base: dict, dev, img_w: int, img_h: int) -> dict:
+    """Phase 21 (a)-(e) on ``dev``, each check raising on failure; the
+    CPU copies are the reference. Returns what (f) times and prints."""
+    from animatablegaussians_torch.ops.rasterize.api import (
+        mark_visible, precompute_sh_colors)
+    cpu = torch.device("cpu")
+    scene = gs3d_scene(base, dev)
+    valid = base["valid"].to(dev)
+    cam = {k: base[k].to(dev) for k in ("extr", "intr")}
+    colors = base["colors"].to(dev)
+    r = dict(n_points=scene.num_points)
+
+    # (a) the SH render through the kernels against plain=True and the
+    # colors= route on the same geometry; SH colours card against CPU
+    with torch.no_grad():
+        out_k = gs3d_render(scene, valid, cam, img_w, img_h)
+        out_p = gs3d_render(scene, valid, cam, img_w, img_h, plain=True)
+        out_c = gs3d_render(scene, valid, cam, img_w, img_h, colors=colors)
+        r["render_err"] = gs3d_compare(out_k, out_p)
+        r["n_pairs"], r["n_pairs_colors"] = out_k["n_pairs"], out_c["n_pairs"]
+        if r["n_pairs"] != r["n_pairs_colors"]:
+            raise AssertionError(f"gs3d: n_pairs {r['n_pairs']} with SH "
+                                 f"against {r['n_pairs_colors']} with colors")
+        for k in ("render", "depth", "mask"):
+            if not torch.isfinite(out_k[k]).all():
+                raise AssertionError(f"gs3d: {k} has non-finite values")
+        r["coverage"] = float((out_k["mask"] > 0.5).float().mean())
+        if not r["coverage"] > 0:
+            raise AssertionError("gs3d: empty mask")
+        feats = scene.get_features
+        sh_dev = precompute_sh_colors(feats, GS_SH_DEGREE, scene.xyz,
+                                      cam["extr"])
+        sh_cpu = precompute_sh_colors(feats.cpu(), GS_SH_DEGREE,
+                                      scene.xyz.cpu(), cam["extr"].cpu())
+        r["sh_err"] = float((sh_dev.cpu() - sh_cpu).abs().max())
+        if not r["sh_err"] <= GS_ATOL_SH:
+            raise AssertionError(f"gs3d: SH colours {r['sh_err']:.3e} apart")
+        # (e) mark_visible on the card against the CPU
+        vis = mark_visible(scene.xyz, cam["extr"])
+        vis_cpu = mark_visible(scene.xyz.cpu(), cam["extr"].cpu())
+        r["visible"], r["visible_cpu"] = int(vis.sum()), int(vis_cpu.sum())
+        if not torch.equal(vis.cpu(), vis_cpu):
+            raise AssertionError(f"gs3d: mark_visible {r['visible']} on "
+                                 f"{dev} against {r['visible_cpu']}")
+    del out_k, out_p, out_c, sh_dev, sh_cpu, feats
+
+    # (b) one Adam step: gradients through blend_bwd.cu against plain=True
+    gen = torch.Generator(device=dev).manual_seed(GS_SEED + 1)
+    cots = (torch.randn((img_h, img_w, 3), generator=gen, device=dev),
+            torch.randn((img_h, img_w), generator=gen, device=dev),
+            torch.randn((img_h, img_w), generator=gen, device=dev))
+    out_p, grads_p, _ = gs3d_step(scene, valid, cam, img_w, img_h, cots,
+                                  plain=True)
+    out_k, grads_k, norms = gs3d_step(scene, valid, cam, img_w, img_h, cots)
+    r["step_err"] = gs3d_compare(out_k, out_p, grads_k, grads_p)
+    radii = out_k["radii"].detach()
+    with torch.no_grad():
+        pts = scene.xyz[valid]
+        extent = 0.5 * float(torch.linalg.norm(pts.max(0).values
+                                               - pts.min(0).values))
+    opt = gs3d_optimizer(scene, extent)
+    opt.step()
+    del out_p, grads_p, out_k, grads_k, pts
+
+    # (c) the densification round with (d)'s surgery, on the card and on
+    # the CPU from the same parameters, norms, radii and split draws
+    thr = gs3d_threshold(scene, norms, radii, extent)
+    r.update(extent=extent, threshold=thr, scene=scene, valid=valid,
+             cam=cam, cots=cots, colors=colors, norms=norms, radii=radii)
+    cpu_scene = type(scene)(**{f: getattr(scene, f).detach().cpu().clone()
+                               for f in scene.FIELDS})
+    new, new_valid, r["steps"] = densify_round(scene, norms, radii, valid,
+                                               thr, extent, opt)
+    ref, ref_valid, ref_steps = densify_round(
+        cpu_scene, norms.cpu(), radii.cpu(), valid.cpu(), thr, extent)
+    counts = lambda steps: [(s["n_after"], s["kept"]) for s in steps]
+    if counts(r["steps"]) != counts(ref_steps):
+        raise AssertionError(f"gs3d: the round's counts on {dev} "
+                             f"{counts(r['steps'])} against the CPU's "
+                             f"{counts(ref_steps)}")
+    for name in ("clone", "split"):
+        if not next(s for s in r["steps"] if s["step"] == name)["appended"]:
+            raise AssertionError(f"gs3d: {name} selected no row")
+    if not torch.equal(new_valid.cpu(), ref_valid):
+        raise AssertionError("gs3d: the valid rows differ from the CPU's")
+    pruned = next(s for s in r["steps"] if s["step"] == "prune")
+    pruned = {k: pruned[k] for k in ("scene", "valid")}
+    for s in r["steps"] + ref_steps:
+        del s["scene"], s["valid"]
+    r["round_err"] = {}
+    for f in new.FIELDS:
+        a, b = getattr(new, f).detach().cpu(), getattr(ref, f).detach()
+        r["round_err"][f] = float((a - b).abs().max()) if b.numel() else 0.0
+        scale = max(1.0, float(b.abs().max())) if b.numel() else 1.0
+        if not r["round_err"][f] <= GS_RTOL_ROUND * scale:
+            raise AssertionError(f"gs3d: the round's {f} on {dev} is "
+                                 f"{r['round_err'][f]:.3e} from the CPU's")
+    del cpu_scene, ref, ref_valid, ref_steps
+
+    # (d) a step through the kernels against plain=True at the new N: on
+    # the opaque scene after the prune, then after the opacity reset, where
+    # one more Adam step follows
+    out_p, grads_p, _ = gs3d_step(pruned["scene"], pruned["valid"], cam,
+                                  img_w, img_h, cots, plain=True)
+    out_k, grads_k, _ = gs3d_step(pruned["scene"], pruned["valid"], cam,
+                                  img_w, img_h, cots)
+    r["pruned_step_err"] = gs3d_compare(out_k, out_p, grads_k, grads_p)
+    r["pruned_n_pairs"] = out_k["n_pairs"]
+    r["pruned_coverage"] = float((out_k["mask"] > 0.5).float().mean())
+    if not r["pruned_coverage"] > 0:
+        raise AssertionError("gs3d: empty mask after the prune")
+    del pruned, out_p, grads_p, out_k, grads_k
+    out_p, grads_p, _ = gs3d_step(new, new_valid, cam, img_w, img_h, cots,
+                                  plain=True)
+    out_k, grads_k, _ = gs3d_step(new, new_valid, cam, img_w, img_h, cots)
+    r["new_step_err"] = gs3d_compare(out_k, out_p, grads_k, grads_p)
+    r["new_n_pairs"] = out_k["n_pairs"]
+    r["new_coverage"] = float((out_k["mask"] > 0.5).float().mean())
+    opt.step()
+    for f in new.FIELDS:
+        p = getattr(new, f)
+        if opt.state[p]["exp_avg"].shape != p.shape \
+                or not torch.isfinite(p).all():
+            raise AssertionError(f"gs3d: {f} after the second step")
+    r.update(new=new, new_valid=new_valid, opt=opt)
+    return r
+
+
+def gs3d_phase(card: str, base: dict, records: list) -> None:
+    """Phase 21: the generic 3DGS layer (SH colours, densification, the
+    Adam surgery) on phase 3's 531,520 posed Gaussians at 1500x2048:
+    ``gs3d_drive``'s checks on the card, then (f) its times, peak memory
+    and launches, which join each kernel's record as ``gs3d_launches``."""
+    from animatablegaussians_torch.ops import fir
+    from animatablegaussians_torch.ops.rasterize import blend, expand
+    from animatablegaussians_torch.ops.rasterize.api import \
+        precompute_sh_colors
+    from animatablegaussians_torch.tools import render_fixture as rf
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda:0")
+    W, H = rf.IMG_W, rf.IMG_H
+    kernels = (expand.expand_pairs, blend.blend_tiles, blend.blend_backward,
+               fir.upfirdn2d_fir)
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels:
+        fn.launches = 0
+    r = gs3d_drive(base, dev, W, H)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    want = dict(GS_LAUNCHES, upfirdn2d_fir=0)
+    phase("gs3d", f"kernel launches in (a)-(d): {launches} (want {want}: "
+          "the SH and colors= renders, three steps; no FIR)")
+    if launches != want:
+        raise AssertionError(f"gs3d: launches {launches}, want {want}")
+    for rec in records:
+        rec["gs3d_launches"] = launches[rec["name"]]
+    e = r["render_err"]
+    phase("gs3d", f"(a) {r['n_points']} Gaussians, SH degree {GS_SH_DEGREE}"
+          f" ({r['n_points']} x {(GS_SH_DEGREE + 1) ** 2} x 3 f32), kernel "
+          "path vs plain path: " + ", ".join(
+              f"{n} {v:.3e} (atol {ATOL_BLEND[n]:g})" for n, v in e.items())
+          + f"; n_pairs {r['n_pairs']} (the colors= route "
+          f"{r['n_pairs_colors']}); mask coverage {r['coverage']:.4f}; "
+          f"precompute_sh_colors card vs CPU {r['sh_err']:.3e} (limit "
+          f"{GS_ATOL_SH:g})")
+    phase("gs3d", "(b) one Adam step, kernel path vs plain path, gradient "
+          "relative L2 per field: " + ", ".join(
+              f"{k} {v:.3e}" for k, v in r["step_err"].items()
+              if k not in ATOL_BLEND) + f" (limit {GS_RTOL_GRAD:g})")
+    phase("gs3d", f"(c) scene_extent {r['extent']:.6f} (half the valid "
+          f"points' bounding-box diagonal), gradient threshold "
+          f"{r['threshold']:.6e}: " + "; ".join(
+              f"{s['step']} N {s['n_before']} -> {s['n_after']} (kept "
+              f"{s['kept']}, appended {s['appended']})" for s in r["steps"])
+          + "; counts equal to the CPU's, values within "
+          + ", ".join(f"{f} {v:.2e}" for f, v in r["round_err"].items())
+          + f" (limit {GS_RTOL_ROUND:g} x max(1, |field|))")
+    phase("gs3d", "(d) Adam surgery after each step: kept rows' moments "
+          "bit for bit, appended rows' zero (opacity's zeroed by the "
+          "reset, as the reference's replace_tensor_to_optimizer), step "
+          f"kept; at N {r['new'].num_points}, kernel path vs plain path: "
+          + "; ".join(
+              f"{label}: " + ", ".join(f"{k} {v:.3e}" for k, v in
+                                       r[f"{key}_step_err"].items())
+              + f" (gradient limit {GS_RTOL_GRAD:g}); n_pairs "
+              f"{r[f'{key}_n_pairs']}, mask coverage "
+              f"{r[f'{key}_coverage']:.4f}"
+              for label, key in (("the step after the prune", "pruned"),
+                                 ("after the reset", "new"))))
+    phase("gs3d", f"(e) mark_visible: {r['visible']} of {r['n_points']} in "
+          f"front of the near plane on the card, {r['visible_cpu']} on the "
+          "CPU, the same rows")
+
+    # (f) times, after the checks (these launches are not counted above)
+    scene, valid, cam = r["scene"], r["valid"], r["cam"]
+    with torch.no_grad():
+        fns = {"SH degree 3": lambda: gs3d_render(scene, valid, cam, W, H),
+               "colors=": lambda: gs3d_render(scene, valid, cam, W, H,
+                                              colors=r["colors"])}
+        t = {k: [] for k in fns}
+        for _ in range(GS_TIMED):           # interleaved, after warm-up
+            for k, fn in fns.items():
+                t[k] += wall_ms(fn, 2)[1:]
+        feats = scene.get_features
+        sh_ms = cuda_ms(lambda: precompute_sh_colors(
+            feats, GS_SH_DEGREE, scene.xyz, cam["extr"]), 20)
+    step = lambda s, v: gs3d_step(s, v, cam, W, H, r["cots"])
+    t_step = wall_ms(lambda: step(scene, valid), GS_TIMED + 1)[1:]
+    t_new = wall_ms(lambda: step(r["new"], r["new_valid"]),
+                    GS_TIMED + 1)[1:]
+    profiles = [(scene.num_points, statistics.median(t_step),
+                 device_profile(lambda: step(scene, valid), top=10 ** 6)),
+                (r["new"].num_points, statistics.median(t_new),
+                 device_profile(lambda: step(r["new"], r["new_valid"]),
+                                top=10 ** 6))]
+    med = {k: statistics.median(v) for k, v in t.items()}
+    phase("gs3d", f"(f) render, median of {GS_TIMED}: " + ", ".join(
+        f"{k} {v:.2f} ms" for k, v in med.items())
+        + f" (SH costs {med['SH degree 3'] - med['colors=']:+.2f} ms; "
+        f"precompute_sh_colors {sh_ms:.3f} ms by CUDA events); forward + "
+        f"backward {statistics.median(t_step):.2f} ms at N "
+        f"{scene.num_points}, {statistics.median(t_new):.2f} ms at N "
+        f"{r['new'].num_points}; {card}")
+    phase("gs3d", "(f) the round (first run, with its syncs): " + ", ".join(
+        f"{s['step']} {s['ms']:.2f} ms + surgery {s['surgery_ms']:.2f} ms"
+        for s in r["steps"])
+        + f"; in all {sum(s['ms'] for s in r['steps']):.2f} ms and "
+        f"{sum(s['surgery_ms'] for s in r['steps']):.2f} ms; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    # (f) where a step's time goes: its device time against its wall time
+    for n, wall, (busy, rows, owners) in profiles:
+        print_profile(f"one gs3d forward + backward at N {n}", busy,
+                      rows[:8], owners, wall)
+        if busy is not None:
+            ms = {k: sum(t for name, t, _ in rows if k in name)
+                  for k in GS_KERNEL_NAMES}
+            phase("gs3d", f"(f) the kernels' device time in that step at N "
+                  f"{n}: " + ", ".join(f"{k} {v:.3f} ms" for k, v in
+                                       ms.items())
+                  + f", together {sum(ms.values()):.3f} ms of the busy "
+                  f"{busy:.3f} ms and the wall {wall:.2f} ms; {card}")
+    del r, scene, valid, fns, feats, profiles
+    torch.cuda.empty_cache()
+    phase("gs3d", f"phase 21 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2857,6 +3400,7 @@ def main() -> int:
     gx, gy = -(-W // TILE), -(-H // TILE)
     n_pts = net.n_points
     records = []
+    gs3d_base = gs3d_inputs(net, items)      # phase 21's scene
 
     # -- 3. pair expansion: kernel vs plain -------------------------------
     with torch.no_grad():
@@ -3481,6 +4025,10 @@ def main() -> int:
         routes_phase(card, tmp, driver_opt, records)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+    # -- 21. the generic 3DGS layer on phase 3's Gaussians ---------------
+    torch.cuda.empty_cache()
+    gs3d_phase(card, gs3d_base, records)
 
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
