@@ -1,5 +1,7 @@
 """Image I/O of the data path: the port's counterpart of the JAX package's
-``mv_rgb_dataset._imread`` and ``data/native_io.py``.
+``mv_rgb_dataset._imread``; ``data/native_io.py`` puts the JAX package's
+numpy-facing decode API (with the threaded batch decode) over the same
+codec.
 
 EXR files (the pose maps) go through the bundled codec (``utils/exr.py``).
 JPEG files go through ONE codec, chosen when this module is imported and
@@ -44,7 +46,7 @@ log = logging.getLogger(__name__)
 
 NATIVE_SRC = Path(__file__).resolve().parents[1] / "native" / "dataloader.cpp"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build"
-GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
+GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
 JPEG_QUALITY = 95
 _INCLUDE_DIRS = ("/usr/include", "/usr/local/include",
                  "/usr/include/x86_64-linux-gnu")
@@ -106,8 +108,10 @@ def _native():
                                       ctypes.POINTER(_I), ctypes.POINTER(_I)]
         lib.agt_decode_jpeg.argtypes = [ctypes.c_char_p, _P, _I]
         lib.agt_encode_jpeg.argtypes = [ctypes.c_char_p, _P, _I, _I, _I, _I]
+        lib.agt_decode_jpeg_batch.argtypes = [
+            ctypes.POINTER(ctypes.c_char_p), _I, _P, ctypes.c_int64, _I, _I]
         for fn in (lib.agt_jpeg_info, lib.agt_decode_jpeg,
-                   lib.agt_encode_jpeg):
+                   lib.agt_encode_jpeg, lib.agt_decode_jpeg_batch):
             fn.restype = _I
         _lib = lib
         return lib

@@ -11,9 +11,10 @@ A-pose item.
 All per-frame SMPL-X forwards (live, without the root, and the canonical
 body) run as batched calls of the port's ``models/smplx`` on the CPU at
 init; ``getitem_fast`` (the 3DGS path, ref:
-dataset_pose.py:361-457) is then array indexing. ``getitem``, the NeRF
-rays of the template stack (ref: dataset_pose.py:254-360), is not ported
-(ROADMAP.md §1 item 5).
+dataset_pose.py:361-457) is then array indexing. ``getitem`` is the NeRF
+item of a template render (ref: dataset_pose.py:254-360): the full image's
+rays clipped to the live bounds (``utils/nerf``), and the body pose with
+the head and hand joints zeroed under ``fix_head_pose`` / ``fix_hand_pose``.
 """
 
 from __future__ import annotations
@@ -29,10 +30,8 @@ import torch
 
 from animatablegaussians_torch import config as agt_config
 from animatablegaussians_torch.data import commons
+from animatablegaussians_torch.utils import nerf as nerf_util
 from animatablegaussians_torch.utils import visualize as viz
-
-_NERF = ("PoseDataset.getitem (the NeRF rays of a template render) is not "
-         "ported: ROADMAP.md §1 item 5")
 
 # relaxed "normal" hand poses used by hand_pose_type='normal'
 # (ref: dataset_pose.py:233-238; values are the reference's constants)
@@ -358,8 +357,33 @@ class PoseDataset:
         return item
 
     def getitem(self, index, **kwargs) -> dict:
-        """The NeRF item (ref: dataset_pose.py:254-360): not ported."""
-        raise NotImplementedError(_NERF)
+        """NeRF item: full-image rays clipped to live bounds, plus the
+        (optionally fixed) pose vector (ref: dataset_pose.py:254-360)."""
+        item = self._base_item(index)
+        pose_idx = self.pose_list[index]
+
+        pose = self.body_poses[pose_idx, 3:66].copy()
+        if self.fix_head_pose:
+            pose[3 * 11: 3 * 11 + 3] = 0.0
+            pose[3 * 14: 3 * 14 + 3] = 0.0
+        if self.fix_hand_pose:
+            pose[3 * 19: 3 * 19 + 3] = 0.0
+            pose[3 * 20: 3 * 20 + 3] = 0.0
+        item["pose"] = pose
+        item["pose_1st"] = self.body_poses[0, 3:66]
+        item["lhand_pose"] = np.zeros(45, np.float32)
+        item["rhand_pose"] = np.zeros(45, np.float32)
+
+        cam = self._camera(item, **kwargs)
+        uv = nerf_util.gen_uv(cam["img_w"], cam["img_h"]).reshape(-1, 2)
+        ray_d, ray_o = nerf_util.get_rays(uv, cam["extr"], cam["intr"])
+        near, far, ok = nerf_util.get_near_far(item["live_bounds"],
+                                               ray_o, ray_d)
+        item.update(uv=uv[ok], ray_o=ray_o[ok], ray_d=ray_d[ok],
+                    near=near.astype(np.float32),
+                    far=far.astype(np.float32),
+                    dist=np.zeros_like(near, np.float32), **cam)
+        return item
 
     def getitem_a_pose(self, **kwargs) -> dict:
         """Canonical A-pose item (ref: dataset_pose.py:459-548): identity

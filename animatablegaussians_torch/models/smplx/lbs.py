@@ -29,6 +29,11 @@ def vertices2joints(J_regressor: torch.Tensor, vertices: torch.Tensor):
     return torch.einsum("jv,bvc->bjc", J_regressor, vertices)
 
 
+def batch_rodrigues(aa: torch.Tensor) -> torch.Tensor:
+    """Axis-angle (..., 3) -> rotation matrices (..., 3, 3)."""
+    return axis_angle_to_mat(aa)
+
+
 def batch_rigid_transform(rot_mats: torch.Tensor, joints: torch.Tensor,
                           parents: np.ndarray
                           ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -7,12 +7,14 @@
 //   * agt_jpeg_info / agt_decode_jpeg: libjpeg scanline decode into a
 //     caller-provided buffer (BGR channel order to match the cv2 convention
 //     the whole pipeline uses).
+//   * agt_decode_jpeg_batch: a std::thread pool decoding N files in
+//     parallel -- no GIL, no worker processes
+//     (animatablegaussians_torch/data/native_io.py).
 //   * agt_encode_jpeg: libjpeg scanline encode of a BGR or grayscale
 //     buffer, for the synthetic capture and the mini-test snapshots.
 //
-// The JAX core's threaded batch decode and boundary mask are not copied:
-// the port's loader decodes on a thread pool of its own and computes the
-// mask with torch.
+// The JAX core's boundary mask is not copied: the port computes it with
+// torch (image_io.boundary_mask).
 
 // jpeglib.h needs size_t and FILE declared first
 #include <cstddef>
@@ -20,9 +22,11 @@
 
 #include <jpeglib.h>
 
+#include <atomic>
 #include <csetjmp>
 #include <cstdint>
 #include <cstring>
+#include <thread>
 #include <vector>
 
 namespace {
@@ -111,6 +115,33 @@ int agt_decode_jpeg(const char* path, uint8_t* out, int out_channels) {
   jpeg_destroy_decompress(&cinfo);
   fclose(fp);
   return 0;
+}
+
+// Parallel batch decode: paths[n], each into outs + i * stride_bytes, on
+// n_threads threads (8 when n_threads <= 0, never more than n). The caller
+// checks that every file has the buffer's size. Returns the number of
+// failures.
+int agt_decode_jpeg_batch(const char** paths, int n, uint8_t* outs,
+                          int64_t stride_bytes, int out_channels,
+                          int n_threads) {
+  std::atomic<int> next(0), failures(0);
+  auto worker = [&]() {
+    while (true) {
+      int i = next.fetch_add(1);
+      if (i >= n) break;
+      if (agt_decode_jpeg(paths[i], outs + static_cast<int64_t>(i) *
+                          stride_bytes, out_channels) != 0) {
+        failures.fetch_add(1);
+      }
+    }
+  };
+  int nt = n_threads > 0 ? n_threads : 8;
+  if (nt > n) nt = n;
+  std::vector<std::thread> threads;
+  threads.reserve(nt);
+  for (int t = 0; t < nt; ++t) threads.emplace_back(worker);
+  for (auto& t : threads) t.join();
+  return failures.load();
 }
 
 // Encode h x w x channels (1: gray, 3: BGR) uint8 rows to a baseline JPEG

@@ -16,6 +16,10 @@
     ``pose_map_jitter`` each frame's masked texels moved by that times
     N(0, 1), so that the frames span a PCA basis).
 
+``write_body_model`` writes an archive of one of the other body-model
+families (SMPL, SMPL+H, MANO, FLAME) in its real shapes (``FAMILIES``)
+with random tensors, for ``models/smplx``'s ``from_npz``.
+
 For the animation entry point (``-m test``) it also writes a driving-pose
 archive (``write_pose_sequence``: THuman4-style or AMASS-style ``.npz``)
 and the MANO index maps (``write_mano``: a numpy copy of
@@ -75,6 +79,73 @@ def write_smplx(path: str, n_verts: int = 120, n_faces: int = 50,
         kintree_table=np.stack([parents, np.arange(J)]),
         f=rng.integers(0, V, (n_faces, 3)).astype(np.int64),
     )
+
+
+# the real archives' shapes: vertices, LBS joints, faces, shape directions
+# (FLAME's 300 shape then 100 expression), hand PCA components (SMPL+H's
+# per hand, MANO's) and face landmarks (static, contour rows x columns)
+FAMILIES = {
+    "smpl": dict(n_verts=6890, n_joints=24, n_faces=13776, n_shape=10),
+    "smplh": dict(n_verts=6890, n_joints=52, n_faces=13776, n_shape=16,
+                  n_hand=45),
+    "mano": dict(n_verts=778, n_joints=16, n_faces=1538, n_shape=10,
+                 n_hand=45),
+    "flame": dict(n_verts=5023, n_joints=5, n_faces=9976, n_shape=400,
+                  landmarks=(51, 79, 17)),
+}
+
+
+def write_body_model(path: str, family: str, n_verts: int = None,
+                     n_faces: int = None, seed: int = 0) -> str:
+    """An archive of ``family`` (a ``FAMILIES`` key) with random tensors of
+    the real archive's layout: its joints on a shallow random tree, shape
+    directions, posedirs (V, 3, (J-1) 9), normalized regressor and skinning
+    weights, the hand PCA basis and a non-zero hand mean, FLAME's landmark
+    embedding (barycentric coordinates that sum to 1). ``n_verts`` and
+    ``n_faces`` override the real counts. Returns ``path``."""
+    spec = FAMILIES[family]
+    V = n_verts or spec["n_verts"]
+    n_f = n_faces or spec["n_faces"]
+    J = spec["n_joints"]
+    rng = np.random.default_rng(seed)
+    parents = np.zeros(J, np.int64)
+    parents[1:] = rng.integers(0, 3, J - 1)
+    for j in range(1, J):
+        parents[j] = min(parents[j], j - 1)
+    norm = lambda w: w / w.sum(-1, keepdims=True)  # noqa: E731
+    arrays = dict(
+        v_template=rng.standard_normal((V, 3)).astype(np.float32),
+        shapedirs=0.03 * rng.standard_normal(
+            (V, 3, spec["n_shape"])).astype(np.float32),
+        posedirs=0.01 * rng.standard_normal(
+            (V, 3, (J - 1) * 9)).astype(np.float32),
+        J_regressor=norm(rng.random((J, V)).astype(np.float32)),
+        weights=norm(rng.random((V, J)).astype(np.float32)),
+        kintree_table=np.stack([parents, np.arange(J)]),
+        f=rng.integers(0, V, (n_f, 3)).astype(np.int64))
+    n_hand = spec.get("n_hand")
+    if family == "smplh":
+        for side in "lr":
+            arrays[f"hands_components{side}"] = rng.standard_normal(
+                (n_hand, 45)).astype(np.float32)
+            arrays[f"hands_mean{side}"] = 0.1 * rng.standard_normal(
+                45).astype(np.float32)
+    elif family == "mano":
+        arrays["hands_components"] = rng.standard_normal(
+            (n_hand, 45)).astype(np.float32)
+        arrays["hands_mean"] = 0.1 * rng.standard_normal(45).astype(
+            np.float32)
+    if "landmarks" in spec:
+        n_lmk, rows, cols = spec["landmarks"]
+        arrays.update(
+            lmk_faces_idx=rng.integers(0, n_f, n_lmk).astype(np.int32),
+            lmk_bary_coords=norm(rng.random((n_lmk, 3)).astype(np.float32)),
+            dynamic_lmk_faces_idx=rng.integers(0, n_f, (rows, cols)).astype(
+                np.int32),
+            dynamic_lmk_bary_coords=norm(rng.random(
+                (rows, cols, 3)).astype(np.float32)))
+    np.savez(path, **arrays)
+    return path
 
 
 def write_pose_sequence(path: str, n_frames: int, style: str = "thuman4",

@@ -33,14 +33,16 @@ CONSTRUCTOR_KEYS = "cano_gaussian."
 def save_checkpoint(ckpt_dir: str, net: torch.nn.Module, optimizer=None,
                     scheduler=None, *, epoch_idx: int = 0,
                     iter_idx: int = 0) -> None:
-    """Write ``net.pt`` and, when ``optimizer`` is given, ``optm.pt``."""
+    """Write ``net.pt`` and, when ``optimizer`` is given, ``optm.pt`` (its
+    ``lr_scheduler`` None without a ``scheduler``)."""
     os.makedirs(ckpt_dir, exist_ok=True)
     torch.save({"epoch_idx": int(epoch_idx), "iter_idx": int(iter_idx),
                 "avatar_net": net.state_dict()},
                os.path.join(ckpt_dir, "net.pt"))
     if optimizer is not None:
         torch.save({"avatar_net": optimizer.state_dict(),
-                    "lr_scheduler": scheduler.state_dict()},
+                    "lr_scheduler": (None if scheduler is None
+                                     else scheduler.state_dict())},
                    os.path.join(ckpt_dir, "optm.pt"))
 
 
@@ -74,7 +76,8 @@ def load_checkpoint(ckpt_dir: str, net: torch.nn.Module, optimizer=None,
         optm = torch.load(os.path.join(ckpt_dir, "optm.pt"),
                           map_location="cpu", weights_only=True)
         optimizer.load_state_dict(optm["avatar_net"])
-        scheduler.load_state_dict(optm["lr_scheduler"])
+        if scheduler is not None:
+            scheduler.load_state_dict(optm["lr_scheduler"])
     return {k: int(ckpt.get(k, 0)) for k in ("epoch_idx", "iter_idx")}
 
 

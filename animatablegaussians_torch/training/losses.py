@@ -1,10 +1,12 @@
 """Training losses: L1 colour, mask, offset norm, SSIM, the crop of the
-image pair that the LPIPS term sees, and the StyleGAN adversarial losses.
+image pair that the LPIPS term sees, the square crops and crop centres,
+the generic losses of the reference's ``utils/losses.py`` and the StyleGAN
+adversarial losses.
 
-Port of ``animatablegaussians_tpu/training/losses.py:15-137,157-186,
-232-246``. Images are (H, W, C) as in the JAX package. The random LPIPS
-crop takes its two uniform draws ``(fv, fu)`` from the caller, so a test
-can hand both packages the same numbers.
+Port of ``animatablegaussians_tpu/training/losses.py``. Images are (H, W,
+C) as in the JAX package. The random LPIPS crop takes its two uniform
+draws ``(fv, fu)`` from the caller, so a test can hand both packages the
+same numbers; ``random_crop_center`` draws from a ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -113,6 +115,59 @@ def crop_to_mask(imgs, mask, patch_size: int,
     return out[0] if single else out
 
 
+def crop_square(img, center_xy, size: int):
+    """(H, W, C) -> the (size, size, C) square centred at ``center_xy``
+    (x, y), its corner clamped into the image as ``jax.lax.dynamic_slice``
+    clamps it (ref patch crop for LPIPS: main_avatar.py:75-115). The corner
+    stays a tensor and the rows and columns are gathered with it, so the
+    crop does not sync with the host."""
+    h, w = img.shape[:2]
+    c = torch.as_tensor(center_xy, device=img.device).to(torch.int64)
+    x0 = torch.clamp(c[0] - size // 2, 0, w - size)
+    y0 = torch.clamp(c[1] - size // 2, 0, h - size)
+    span = torch.arange(size, device=img.device)
+    return img.index_select(0, y0 + span).index_select(1, x0 + span)
+
+
+def mask_center(mask):
+    """Centroid of a binary mask as int32 (x, y) pixel coordinates
+    (truncated, as the JAX package's ``astype(int32)``)."""
+    h, w = mask.shape[:2]
+    ys = torch.arange(h, dtype=torch.float32, device=mask.device)
+    xs = torch.arange(w, dtype=torch.float32, device=mask.device)
+    total = torch.clamp(torch.sum(mask), min=1.0)
+    cy = torch.sum(mask * ys[:, None]) / total
+    cx = torch.sum(mask * xs[None, :]) / total
+    return torch.stack([cx, cy]).to(torch.int32)
+
+
+def random_crop_center(generator: torch.Generator, mask, size: int):
+    """A random int32 (x, y) centre in the bounding box of ``mask > 0.5``
+    (the reference's crop after 300k iterations; ref:
+    main_avatar.py:98-115), drawn on the generator's device without a host
+    sync. Each coordinate is uniform on the JAX package's range [min(lo,
+    hi), max(hi, lo + 1)) of the box's first and last row (column), which
+    for an empty mask is [0, h + 1), as in JAX. ``size`` is unused, as in
+    JAX. JAX's ``randint`` draws cannot be reproduced: the integers come
+    from ``torch.randint`` over [0, 2^31 - 1) taken modulo the range's
+    length (a bias below 1e-6 at image sizes)."""
+    h, w = mask.shape[:2]
+    dev = mask.device
+    ys = torch.any(mask > 0.5, dim=1)
+    xs = torch.any(mask > 0.5, dim=0)
+    idx_y = torch.arange(h, device=dev)
+    idx_x = torch.arange(w, device=dev)
+    y0 = torch.min(torch.where(ys, idx_y, h))
+    y1 = torch.max(torch.where(ys, idx_y, 0))
+    x0 = torch.min(torch.where(xs, idx_x, w))
+    x1 = torch.max(torch.where(xs, idx_x, 0))
+    lo = torch.stack([torch.minimum(x0, x1), torch.minimum(y0, y1)])
+    hi = torch.stack([torch.maximum(x1, x0 + 1), torch.maximum(y1, y0 + 1)])
+    r = torch.randint(0, 2 ** 31 - 1, (2,), generator=generator,
+                      device=generator.device).to(dev)
+    return (lo + r % (hi - lo)).to(torch.int32)
+
+
 def ssim(a, b, data_range: float = 1.0, win_size: int = 7, k1: float = 0.01,
          k2: float = 0.03):
     """Differentiable SSIM with a uniform window (skimage semantics) on
@@ -139,6 +194,70 @@ def ssim(a, b, data_range: float = 1.0, win_size: int = 7, k1: float = 0.01,
 
 def ssim_loss(pred, target):
     return 1.0 - ssim(pred, target)
+
+
+# generic losses (ref: utils/losses.py)
+
+def mse(a, b):
+    return torch.mean((a - b) ** 2)
+
+
+def tv_loss(img):
+    """Mean absolute difference along the first two axes, summed."""
+    dy = torch.abs(img[1:, :] - img[:-1, :]).mean()
+    dx = torch.abs(img[:, 1:] - img[:, :-1]).mean()
+    return dx + dy
+
+
+def eikonal_loss(grads):
+    """|| |grad sdf| - 1 ||^2 (ref: main_template.py:52-59)."""
+    return torch.mean((torch.linalg.norm(grads, dim=-1) - 1.0) ** 2)
+
+
+def second_order_smoothness(x, axis: int = 0):
+    """Sequence acceleration penalty (ref: utils/losses.py:16-31)."""
+    n = x.shape[axis]
+    x0 = x.narrow(axis, 0, n - 2)
+    x1 = x.narrow(axis, 1, n - 2)
+    x2 = x.narrow(axis, 2, n - 2)
+    return torch.mean((2 * x1 - x2 - x0) ** 2)
+
+
+def weighted_mse(pred, target, weight):
+    """(ref: utils/losses.py:34-40)."""
+    return torch.mean((pred * weight - target * weight) ** 2)
+
+
+def cosine_distance(pred, target, weight=None, axis: int = -1,
+                    normalized: bool = True):
+    """1 - cosine similarity along ``axis`` (ref: utils/losses.py:43-62),
+    the norms clamped at 1e-8."""
+    if normalized:
+        pred = pred / torch.clamp(
+            torch.linalg.norm(pred, dim=axis, keepdim=True), min=1e-8)
+        target = target / torch.clamp(
+            torch.linalg.norm(target, dim=axis, keepdim=True), min=1e-8)
+    d = 1.0 - torch.sum(pred * target, dim=axis)
+    if weight is not None:
+        d = d * weight
+    return torch.mean(d)
+
+
+def iou_loss(predict, target):
+    """1 - IoU of soft masks, per item over all but the first axis (ref:
+    utils/losses.py:80-89)."""
+    # torch.sum over no dims would sum everything; jnp.sum sums nothing
+    dims = tuple(range(predict.dim()))[1:]
+    total = (lambda x: torch.sum(x, dims)) if dims else (lambda x: x)
+    intersect = total(predict * target)
+    union = total(predict + target - predict * target) + 1e-6
+    return torch.mean(1.0 - intersect / union)
+
+
+def kld_loss(mu, logvar):
+    """VAE KL(q || N(0, 1)) (ref: utils/losses.py:92-104)."""
+    return torch.mean(-0.5 * torch.sum(
+        1 + logvar - mu ** 2 - torch.exp(logvar), dim=-1))
 
 
 # StyleGAN adversarial losses (ref: utils/losses.py:139-159). The R1

@@ -26,7 +26,8 @@ Inception trunk's weights across; ``dual_styleunet_v2_state``,
 ``swgan_unet_state``, ``style_generator_state`` and ``discriminator_state``
 the StyleGAN2 family's (the inverses of the JAX package's
 ``import_dual_styleunet_v2``, ``import_swgan_unet``,
-``import_style_generator`` and ``import_discriminator``).
+``import_style_generator`` and ``import_discriminator``);
+``feature2d_state`` the 2D feature fields' (``models/feature2d``).
 """
 
 from __future__ import annotations
@@ -243,3 +244,29 @@ def adam_state_from_optax(optimizer, g, count, mu, nu) -> None:
             "step": torch.tensor(float(count), dtype=torch.float32),
             "exp_avg": _t(getattr(mu, f)).to(p.device),
             "exp_avg_sq": _t(getattr(nu, f)).to(p.device)}
+
+
+def feature2d_state(p) -> dict:
+    """JAX ``models/feature2d`` parameters -> the port's state dict:
+    ``TriPlaneFeature`` / ``UVFeature`` ({"fmap": (1, S, S, C)} -> (1, C, S,
+    S)), ``ConvStack`` (a list of {"w"}) or ``UNet5`` (a dict of {"w"[,
+    "b"]}). A conv's HWIO weight becomes (out, in, kh, kw); a transposed
+    conv's (``deconv1``-``deconv4``, JAX ``_deconv``: a convolution of the
+    lhs-dilated input with the flipped kernel) becomes
+    ``ConvTranspose2d``'s (in, out, kh, kw) without the flip, which the
+    transposed convolution applies itself."""
+    if isinstance(p, dict) and "fmap" in p:
+        return {"fmap": _t(np.asarray(p["fmap"]).transpose(0, 3, 1, 2))}
+    if isinstance(p, (list, tuple)):
+        return {f"convs.{i}.weight": _conv_w(cp["w"])
+                for i, cp in enumerate(p)}
+    sd = {}
+    for name, cp in p.items():
+        if name in ("deconv1", "deconv2", "deconv3", "deconv4"):
+            sd[f"{name}.weight"] = _t(np.asarray(cp["w"]).transpose(
+                2, 3, 0, 1))
+        else:
+            sd[f"{name}.weight"] = _conv_w(cp["w"])
+        if "b" in cp:
+            sd[f"{name}.bias"] = _t(cp["b"])
+    return sd

@@ -1,6 +1,7 @@
 """Self-contained OpenEXR scanline codec (read + write): a copy of
 ``animatablegaussians_tpu/utils/exr.py``, so the port never imports the JAX
-package.
+package; ``imread`` / ``imwrite`` send other formats to the data path's
+codec.
 
 The reference stores pose maps as cv2-written EXRs
 (ref: gen_data/gen_pos_maps.py:110-162, dataset_mv_rgb.py:146-151), but
@@ -236,3 +237,26 @@ def write_exr(path: str, img: np.ndarray, half: bool = False,
             fp.write(struct.pack("<ii", y0, len(payload)))
             fp.write(payload)
 
+
+def imread(path: str):
+    """An image file: ``.exr`` through this codec, the rest through the
+    data path's reader (``data/image_io.imread``: JPEG through its one
+    codec, other formats through cv2)."""
+    if path.endswith(".exr"):
+        return read_exr(path)
+    from animatablegaussians_torch.data import image_io
+    return image_io.imread(path)
+
+
+def imwrite(path: str, img: np.ndarray):
+    """``img`` to ``path``: ``.exr`` through this codec, JPEG through the
+    data path's codec (``image_io.write_jpeg``), other formats through
+    cv2. Raises ``IOError`` where cv2 refuses."""
+    if path.endswith(".exr"):
+        return write_exr(path, img)
+    from animatablegaussians_torch.data import image_io
+    if path.endswith((".jpg", ".jpeg")):
+        return image_io.write_jpeg(path, img)
+    import cv2
+    if not cv2.imwrite(path, img):
+        raise IOError(f"cv2 could not write {path}")

@@ -2,7 +2,7 @@
 per-frame items, for when no real capture data is present.
 
 A numpy-only copy of ``animatablegaussians_tpu/utils/synthetic.py``
-(make_cano_map, pose_map_from_cano, make_items), kept here so that the port
+(make_cano_map, pose_map_from_cano, make_items, batch_items), kept here so that the port
 and its GPU smoke run never import the JAX package;
 ``tests/test_torch_ops.py`` holds the two copies equal.
 """
@@ -83,3 +83,9 @@ def make_items(n_joints: int = 55, img_w: int = 128, img_h: int = 128,
     if cano_pos_map is not None:
         items["smpl_pos_map"] = pose_map_from_cano(cano_pos_map)
     return items
+
+
+def batch_items(items_list):
+    """Stack a list of item dicts along a new leading batch axis."""
+    keys = items_list[0].keys()
+    return {k: np.stack([it[k] for it in items_list]) for k in keys}

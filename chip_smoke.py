@@ -7,8 +7,10 @@ of that capture's frames; then the template stack that prepares a
 subject, on a capture of its own; the StyleGAN2 family and one GAN step
 with its R1 penalty, the second derivative through the FIR kernel; the
 train path's routes: remat, the data-parallel step, random styles and
-the training CLI under torchrun's variables; last, the generic 3DGS
-layer: SH colours, densification and its Adam surgery.
+the training CLI under torchrun's variables; the generic 3DGS layer: SH
+colours, densification and its Adam surgery; last, the loader-fed train
+tool, the batched JPEG decode, the body-model families, the 2D feature
+fields, the template losses and the generic trainer.
 
     python3 chip_smoke.py
 
@@ -259,6 +261,27 @@ itself. Phases, each printing a line, any failure exiting non-zero:
                 share, the kernels' device ms). Each record
                 gains ``gs3d_launches`` (counters reset just before (a),
                 read after (d)).
+ 22. loader   - the slice that finished the port (loader_phase): (a)
+                tools/bench_loader's loop on LOADER_FRAMES frames at
+                1500x2048 written by its build_dataset, at B = 1 and B =
+                2, LOADER_THREADS decode threads, LOADER_WARMUP +
+                LOADER_TIMED steps: it/s, ms/step and the mean loader wait
+                beside phase 9's and phase 20's bare steps; the first
+                batch on the card equal to DiskDataset's read bit for
+                bit; phase 9's (14's) launches a step, the counters reset
+                just before each loop (records gain ``loader_launches``
+                and ``loader_b2_launches``); finite losses; (b)
+                DECODE_FILES JPEGs through decode_jpeg_batch at 1 and
+                LOADER_THREADS threads against decode_jpeg bit for bit,
+                ms an image and the codec; (c) SMPL, SMPL+H, MANO and
+                FLAME at their real sizes from archives the phase writes,
+                card against CPU at B = BODY_B, ms a forward; (d) a
+                tri-plane sample of the fixture's 531,520 Gaussians, its
+                backward and a gradient of a gradient, and UNet5 at nf
+                UNET_NF on UNET_SIDE^2, card against CPU, ms; (e) the
+                eleven template losses card against CPU, three
+                BaseTrainer iterations with a checkpoint, TensorBoard and
+                a resume bit for bit.
 
 Each kernel's record carries its bound: the least time the card could take
 for the same work, the larger of the bytes it must move over the memory
@@ -519,6 +542,26 @@ GS_RTOL_GRAD = 1e-4
 # and after the reset (d)
 GS_LAUNCHES = dict(expand_pairs=5, blend_tiles=5, blend_backward=3)
 GS_TIMED = 5
+# phase 22: the loader-fed train path (tools/bench_loader) on a dataset of
+# LOADER_FRAMES frames at 1500x2048 (the JAX tool's default is 24; 8 give
+# B = 2 four batches an epoch), LOADER_THREADS decode threads,
+# LOADER_WARMUP + LOADER_TIMED steps at B = 1 and B = 2
+LOADER_FRAMES, LOADER_THREADS = 8, 8
+LOADER_WARMUP, LOADER_TIMED = 3, 10
+# (b) JPEGs of the batch decode, and its timed repeats
+DECODE_FILES, DECODE_REPS = 16, 3
+# (c) the body-model families' batch, and the card against the CPU, each
+# output's largest error over its largest magnitude: float32 einsums and
+# matmuls (TF32 off) summed in another order
+BODY_B, BODY_RTOL = 64, 1e-5
+# (d) the tri-plane field: 32 channels a plane at 256^2; the card against
+# the CPU relative to each output's largest magnitude: the same float32
+# arithmetic a point, but the gradients to the planes are scatter sums
+# whose order the card's atomics set; UNet5's cuDNN and CPU convolutions
+FEAT_DIM, FEAT_SIZE, FEAT_RTOL = 32, 256, 1e-4
+UNET_NF, UNET_SIDE, UNET_RTOL = 64, 512, 1e-4
+# (e) the losses and their gradients, card against CPU
+LOSS_RTOL = 1e-5
 # a generator's forward through the FIR kernel against through its plain
 # version is held bit for bit under cuDNN's deterministic algorithms: every
 # FIR launch of it equals its plain version bit for bit, and deterministic
@@ -2552,7 +2595,7 @@ def free_port() -> int:
 
 
 def routes_phase(card: str, tmp: str, driver_opt: dict,
-                 records: list) -> None:
+                 records: list) -> dict:
     """Phase 20: the train path's routes at full width. (a) remat: a
     B = 1 and a B = 2 step with remat against the same steps without it
     (deterministic cuDNN: losses RTOL_REMAT_LOSS, gradients
@@ -2572,7 +2615,8 @@ def routes_phase(card: str, tmp: str, driver_opt: dict,
     group, the rank on cuda:0, use_dp off, one epoch, epoch_latest's
     net.pt loading strictly into a fresh AvatarNet, the group torn down.
     The FIR record gains the remat step's launches by direction
-    (``remat_step_launches``)."""
+    (``remat_step_launches``). Returns (a)'s median ms/step by (B,
+    remat)."""
     import torch.distributed as dist
     import yaml
 
@@ -2662,7 +2706,7 @@ def routes_phase(card: str, tmp: str, driver_opt: dict,
           " s")
     t_part = time.perf_counter()
     # ms/step, device busy and peak memory by B, without and with remat
-    peaks = {}
+    peaks, step_ms = {}, {}
     for b in REMAT_BS:
         for on in (False, True):
             if not on and b > 4:
@@ -2701,7 +2745,7 @@ def routes_phase(card: str, tmp: str, driver_opt: dict,
             d = (at.make_draws(gen, n_pts) if b == 1 else
                  [at.make_draws(gen, n_pts) for _ in range(b)])
             busy = device_busy(lambda: step(state, batch, d))
-            med = statistics.median(t)
+            med = step_ms[(b, on)] = statistics.median(t)
             phase("routes", f"B = {b}, remat {'on ' if on else 'off'}: "
                   f"median {med:.2f} ms/step ({med / b:.2f} ms/frame) over "
                   f"{['%.2f' % x for x in t]} after {REMAT_WARMUP} warm-up; "
@@ -2883,6 +2927,7 @@ def routes_phase(card: str, tmp: str, driver_opt: dict,
     del trainer, fresh, ckpt
     torch.cuda.empty_cache()
     phase("routes", f"phase 20 took {time.perf_counter() - t_phase:.1f} s")
+    return step_ms
 
 
 def gs3d_inputs(net, items) -> dict:
@@ -3350,6 +3395,467 @@ def gs3d_phase(card: str, base: dict, records: list) -> None:
     del r, scene, valid, fns, feats, profiles
     torch.cuda.empty_cache()
     phase("gs3d", f"phase 21 took {time.perf_counter() - t_phase:.1f} s")
+
+
+def _rel_err(a, b) -> float:
+    """max |a - b| over the largest |b| (floor 1e-30), on the CPU."""
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+
+def _noise_jpegs(root: str, n: int, w: int, h: int, seed: int) -> list:
+    """``n`` colour JPEGs of w x h at quality 90 with bench_loader's
+    photographic noise (a cubic upsampling of N(0, 1) at 1/8 size)."""
+    import cv2
+    rng = np.random.default_rng(seed)
+    paths = []
+    for i in range(n):
+        tex = cv2.resize(rng.standard_normal((h // 8, w // 8, 3)), (w, h),
+                         interpolation=cv2.INTER_CUBIC)
+        p = os.path.join(root, f"decode_{i:02d}.jpg")
+        cv2.imwrite(p, (np.clip(0.5 + 0.25 * tex, 0, 1) * 255).astype(
+            np.uint8), [cv2.IMWRITE_JPEG_QUALITY, 90])
+        paths.append(p)
+    return paths
+
+
+def item_stage_ms(ds) -> dict:
+    """Host ms of ``DiskDataset.__getitem__`` (``item``), and of its
+    stages on the same files, median over its first three items."""
+    from animatablegaussians_torch.data import native_io
+    from animatablegaussians_torch.utils import exr
+
+    t = {k: [] for k in ("item", "colour decode", "mask decode",
+                         "boundary mask", "EXR read", "float conversion")}
+
+    def clock(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        t[name].append(time.perf_counter() - t0)
+        return out
+
+    for i in range(3):
+        path = {n: os.path.join(ds.root, f"{n}_{i:04d}.{e}") for n, e in
+                (("color", "jpg"), ("mask", "jpg"), ("pose", "exr"))}
+        clock("item", lambda: ds[i])
+        color = clock("colour decode",
+                      lambda: native_io.decode_jpeg(path["color"]))
+        raw = clock("mask decode", lambda: native_io.decode_jpeg(
+            path["mask"], grayscale=True))
+        boundary, binarized = clock("boundary mask",
+                                    lambda: native_io.boundary_mask(raw))
+        clock("EXR read", lambda: exr.read_exr(path["pose"]))
+        clock("float conversion", lambda: (
+            color.astype(np.float32) / 255.0, binarized.astype(np.float32),
+            boundary.astype(np.float32)))
+    return {k: 1e3 * statistics.median(v) for k, v in t.items()}
+
+
+def loader_fed_part(card: str, root: str, records: list,
+                    bare_step_ms: float, b2_step_ms: float):
+    """Phase 22 (a): ``tools/bench_loader``'s loop on a dataset of
+    LOADER_FRAMES frames at 1500x2048 (the JAX tool's default is 24), at
+    B = 1 (``make_train_step``) and B = 2 (``make_train_step_batched``),
+    LOADER_THREADS decode threads, LOADER_WARMUP + LOADER_TIMED steps. The
+    first batch the loader put on the card equals ``DiskDataset``'s read of
+    the same indices bit for bit; the steps' kernel launches are phase 9's
+    (B = 1) and phase 14's (B = 2) a step; the losses are finite. Returns
+    the fixture's net (for (d)'s points)."""
+    from animatablegaussians_torch.data.loader import PrefetchLoader
+    from animatablegaussians_torch.ops import fir
+    from animatablegaussians_torch.ops.rasterize.blend import (
+        blend_backward, blend_tiles)
+    from animatablegaussians_torch.ops.rasterize.expand import expand_pairs
+    from animatablegaussians_torch.tools import bench_loader as bl
+    from animatablegaussians_torch.tools import render_fixture as rf
+    from animatablegaussians_torch.training import lpips as tlp
+
+    dev = torch.device("cuda:0")
+    W, H = rf.IMG_W, rf.IMG_H
+    t0 = time.perf_counter()
+    bl.build_dataset(root, LOADER_FRAMES, W, H, rf.MAP_H)
+    build_s = time.perf_counter() - t0
+    net, _ = rf.build(dev)
+    fixture_state = {k: v.clone() for k, v in net.state_dict().items()}
+    lpips = tlp.LPIPS(tlp.init_random(rf.LPIPS_SEED), device=dev)
+    ds = bl.DiskDataset(root, LOADER_FRAMES)
+    item = item_stage_ms(ds)
+    phase("loader", f"(a) one DiskDataset item on the host, median of 3 "
+          "items: " + ", ".join(f"{k} {v:.2f} ms" for k, v in item.items())
+          + f" ({os.cpu_count()} cores)")
+    n_fir, n_fir_grad = fir_count(net)
+    counted = (expand_pairs, blend_tiles, blend_backward, fir.upfirdn2d_fir)
+    n_total = LOADER_WARMUP + LOADER_TIMED
+    beside = {1: f"phase 9's bare B = 1 step {bare_step_ms:.2f} ms",
+              2: f"phase 20's bare B = 2 step {b2_step_ms:.2f} ms"}
+    for b in (1, 2):
+        net.load_state_dict(fixture_state)
+        run = bl.make_run(net, 0 if b == 1 else b, dev, lpips=lpips,
+                          img_w=W, img_h=H)
+        loader = PrefetchLoader(ds, batch_size=b, shuffle=True,
+                                num_threads=LOADER_THREADS, prefetch=2,
+                                device=dev)
+        first_idx = loader.index_batches(1)[0]
+        kept = []
+
+        def run_keep(batch):
+            if not kept:                # the first batch, as it arrived
+                kept.append({k: v.clone() for k, v in batch.items()})
+            return run(batch)
+
+        for fn in counted:
+            fn.launches = 0
+        res = bl.timed_loop(run_keep, loader, LOADER_TIMED,
+                            warm=LOADER_WARMUP,
+                            sync=torch.cuda.synchronize)
+        launches = {fn.__name__: fn.launches for fn in counted}
+        want = dict(expand_pairs=b * n_total, blend_tiles=b * n_total,
+                    blend_backward=b * n_total,
+                    upfirdn2d_fir=n_total * (n_fir + n_fir_grad))
+        reads = [ds[int(i)] for i in first_idx]
+        same = {k: bool(torch.equal(v.cpu(), torch.from_numpy(np.stack(
+            [r[k] for r in reads])))) for k, v in kept[0].items()}
+        bad = [t for t in res["terms"]
+               if not all(math.isfinite(v) for v in t.values())]
+        phase("loader", f"(a) B = {b}: {res['it_s']:.3f} it/s, "
+              f"{res['ms_step']:.2f} ms/step over {LOADER_TIMED} steps "
+              f"after {LOADER_WARMUP} warm-up ({LOADER_THREADS} decode "
+              f"threads, {LOADER_FRAMES} frames); mean loader wait "
+              f"{1e3 * res['wait_mean_s']:.2f} ms a step (max "
+              f"{1e3 * max(res['waits']):.2f}); {beside[b]}; dataset "
+              f"built in {build_s:.1f} s ({card})")
+        phase("loader", f"(a) B = {b}: kernel launches {launches} (want "
+              f"{want}: {n_fir} + {n_fir_grad} FIRs and "
+              f"{b} splat{'s' if b > 1 else ''} a step); first batch on "
+              f"the card equals DiskDataset's read of items "
+              f"{[int(i) for i in first_idx]}: {same}; step 0 terms "
+              + ", ".join(f"{k} {v:.6f}" for k, v in res["terms"][0].items()))
+        if launches != want or not all(same.values()) or bad:
+            raise AssertionError(f"loader-fed B = {b}: launches "
+                                 f"{launches} (want {want}), first batch "
+                                 f"{same}, non-finite {bad[:1]}")
+        for r in records:
+            r["loader_launches" if b == 1 else "loader_b2_launches"] = \
+                launches[r["name"]]
+        del run, loader, kept
+    net.load_state_dict(fixture_state)
+    del lpips, fixture_state
+    return net
+
+
+def decode_part(card: str, root: str) -> None:
+    """Phase 22 (b): DECODE_FILES colour JPEGs at 1500x2048 through
+    ``decode_jpeg_batch`` at 1 and LOADER_THREADS threads against
+    ``decode_jpeg`` one file at a time, bit for bit; ms an image."""
+    from animatablegaussians_torch.data import image_io, native_io
+    from animatablegaussians_torch.tools import render_fixture as rf
+
+    paths = _noise_jpegs(root, DECODE_FILES, rf.IMG_W, rf.IMG_H, seed=22)
+    one = np.stack([native_io.decode_jpeg(p) for p in paths])
+    ms = {}
+    for n in (1, LOADER_THREADS):
+        t = []
+        for _ in range(DECODE_REPS):
+            t0 = time.perf_counter()
+            out = native_io.decode_jpeg_batch(paths, n_threads=n)
+            t.append((time.perf_counter() - t0) * 1e3 / len(paths))
+            if not np.array_equal(out, one):
+                raise AssertionError(f"decode_jpeg_batch at {n} threads "
+                                     "differs from decode_jpeg")
+        ms[n] = statistics.median(t)
+    t0 = time.perf_counter()
+    for p in paths:
+        native_io.decode_jpeg(p)
+    ms_one = (time.perf_counter() - t0) * 1e3 / len(paths)
+    phase("loader", f"(b) codec {image_io.CODEC}: {len(paths)} JPEGs "
+          f"{rf.IMG_W}x{rf.IMG_H} q90, decode_jpeg_batch equal to "
+          f"decode_jpeg bit for bit; ms an image, median of "
+          f"{DECODE_REPS}: 1 thread {ms[1]:.2f}, {LOADER_THREADS} threads "
+          f"{ms[LOADER_THREADS]:.2f} ({ms[1] / ms[LOADER_THREADS]:.2f}x); "
+          f"decode_jpeg in a loop {ms_one:.2f} (host: {os.cpu_count()} "
+          f"cores; {card})")
+
+
+def body_models_part(card: str, root: str) -> None:
+    """Phase 22 (c): one forward of SMPL, SMPL+H, MANO and FLAME (with its
+    contour) at the real archives' sizes (``capture_fixture.FAMILIES``,
+    random tensors), the card against the CPU at B = BODY_B (each output
+    within BODY_RTOL of its largest magnitude); ms a forward by CUDA
+    events."""
+    from animatablegaussians_torch.models import smplx
+    from animatablegaussians_torch.tools import capture_fixture as cf
+
+    dev = torch.device("cuda:0")
+    rng = np.random.default_rng(22)
+    make = dict(smpl=lambda p, d: smplx.SMPL.from_npz(p, device=d),
+                smplh=lambda p, d: smplx.SMPLH.from_npz(
+                    p, num_betas=16, device=d),
+                mano=lambda p, d: smplx.MANO.from_npz(p, device=d),
+                flame=lambda p, d: smplx.FLAME.from_npz(
+                    p, device=d, use_face_contour=True))
+    dims = dict(smpl=dict(betas=10, global_orient=3, body_pose=69,
+                          transl=3),
+                smplh=dict(betas=16, global_orient=3, body_pose=63,
+                           left_hand_pose=6, right_hand_pose=6, transl=3),
+                mano=dict(betas=10, global_orient=3, hand_pose=6, transl=3),
+                flame=dict(betas=10, global_orient=3, neck_pose=3,
+                           jaw_pose=3, leye_pose=3, reye_pose=3,
+                           expression=10, transl=3))
+    for fam, spec in cf.FAMILIES.items():
+        path = cf.write_body_model(os.path.join(root, f"{fam}.npz"), fam)
+        args = {k: torch.from_numpy((0.3 * rng.standard_normal(
+            (BODY_B, d))).astype(np.float32)) for k, d in dims[fam].items()}
+        m_card, m_cpu = make[fam](path, dev), make[fam](path, "cpu")
+        with torch.no_grad():
+            card_args = {k: v.to(dev) for k, v in args.items()}
+            got = m_card(**card_args)
+            want = m_cpu(**args)
+            ms = cuda_ms(lambda: m_card(**card_args), 20)
+        errs = {k: _rel_err(got[k], want[k])
+                for k in ("vertices", "joints", "A", "full_pose")}
+        phase("body", f"(c) {fam}: {spec['n_verts']} vertices, "
+              f"{spec['n_joints']} joints, joints out "
+              f"{tuple(got['joints'].shape)}; card vs CPU " + ", ".join(
+                  f"{k} {e:.1e}" for k, e in errs.items())
+              + f" (limit {BODY_RTOL:g}); {ms:.3f} ms a forward at B = "
+              f"{BODY_B} ({card})")
+        if max(errs.values()) > BODY_RTOL or not torch.isfinite(
+                got["vertices"]).all():
+            raise AssertionError(f"{fam}: card vs CPU {errs}")
+
+
+def feature2d_part(card: str, net) -> None:
+    """Phase 22 (d): a tri-plane sample of the fixture's Gaussians
+    (normalized into [-1, 1]) from a FEAT_SIZE^2 x (3 FEAT_DIM) plane
+    stack, its backward and a gradient of a gradient through
+    ``grid_sample2d``; UNet5 at nf UNET_NF on UNET_SIDE^2. The card
+    against the CPU on the same inputs (FEAT_RTOL of each output's largest
+    magnitude, UNET_RTOL for the U-Net), ms by CUDA events."""
+    from animatablegaussians_torch.models import feature2d as f2d
+    from animatablegaussians_torch.utils.geometry import normalize_vert_bbox
+
+    dev = torch.device("cuda:0")
+    xyz = normalize_vert_bbox(net.cano_gaussian.xyz.detach())[None]
+    tri = f2d.TriPlaneFeature(FEAT_DIM, FEAT_SIZE, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(22)
+    cot = torch.randn((1, xyz.shape[1], 3 * FEAT_DIM), generator=gen,
+                      device=dev)
+
+    def passes(fmap, pts, c):
+        """forward, the first derivatives and the gradient of the squared
+        point gradient, each in (fmap, points)."""
+        fmap = fmap.detach().requires_grad_(True)
+        pts = pts.detach().requires_grad_(True)
+        out = f2d.triplane_sample(pts, fmap)
+        g_f, g_p = torch.autograd.grad((out * c).sum(), [fmap, pts],
+                                       create_graph=True)
+        h_f, h_p = torch.autograd.grad((g_p ** 2).sum(), [fmap, pts])
+        return dict(out=out, g_fmap=g_f, g_pts=g_p, gg_fmap=h_f, gg_pts=h_p)
+
+    fmap = tri(1)
+    got = passes(fmap, xyz, cot)
+    want = passes(fmap.cpu(), xyz.cpu(), cot.cpu())
+    errs = {k: _rel_err(got[k], want[k]) for k in got}
+    fm = fmap.detach()
+
+    def fwd():
+        with torch.no_grad():
+            f2d.triplane_sample(xyz, fm)
+
+    def fwd_bwd():
+        f = fm.requires_grad_(True)
+        torch.autograd.grad((f2d.triplane_sample(xyz, f) * cot).sum(), f)
+
+    def double():
+        passes(fm, xyz, cot)
+
+    ms = dict(forward=cuda_ms(fwd, 5), forward_backward=cuda_ms(fwd_bwd, 5),
+              double_backward=cuda_ms(double, 3))
+    phase("feature2d", f"(d) triplane_sample of {xyz.shape[1]} Gaussians "
+          f"from (1, {3 * FEAT_DIM}, {FEAT_SIZE}, {FEAT_SIZE}): card vs CPU "
+          + ", ".join(f"{k} {e:.1e}" for k, e in errs.items())
+          + f" (limit {FEAT_RTOL:g}); ms " + ", ".join(
+              f"{k} {v:.3f}" for k, v in ms.items()) + f" ({card})")
+    if max(errs.values()) > FEAT_RTOL:
+        raise AssertionError(f"triplane_sample card vs CPU {errs}")
+    del got, want
+    unet = f2d.UNet5(3, 3, UNET_NF, device=dev)
+    x = torch.randn((1, 3, UNET_SIDE, UNET_SIDE), generator=gen, device=dev)
+    with torch.no_grad():
+        y = unet(x)
+        unet_cpu = f2d.UNet5(3, 3, UNET_NF, device="cpu")
+        unet_cpu.load_state_dict(unet.state_dict())
+        err = _rel_err(y, unet_cpu(x.cpu()))
+        ms_u = cuda_ms(lambda: unet(x), 5)
+    xg = x.clone().requires_grad_(True)
+    ms_ub = cuda_ms(lambda: unet(xg).sum().backward(), 3)
+    phase("feature2d", f"(d) UNet5 nf {UNET_NF} on {UNET_SIDE}^2: card vs "
+          f"CPU {err:.1e} (limit {UNET_RTOL:g}); {ms_u:.3f} ms forward, "
+          f"{ms_ub:.3f} ms forward + backward ({card})")
+    if err > UNET_RTOL or not torch.isfinite(y).all():
+        raise AssertionError(f"UNet5 card vs CPU {err}")
+
+
+def leftovers_part(card: str, root: str) -> None:
+    """Phase 22 (e): the eleven losses of ``training/losses.py``, the card
+    against the CPU (LOSS_RTOL; crop_square and mask_center exact;
+    random_crop_center's card draws inside the mask's box); three
+    ``BaseTrainer`` iterations of a ConvStack with Adam on the card, its
+    files (loss.txt, a TensorBoard event file, batch_3 / epoch_1 /
+    epoch_latest) and a resume that restores the weights and Adam's state
+    bit for bit."""
+    from animatablegaussians_torch.models import feature2d as f2d
+    from animatablegaussians_torch.training import base_trainer as btr
+    from animatablegaussians_torch.training import losses as L
+    from animatablegaussians_torch.utils import synthetic
+
+    dev = torch.device("cuda:0")
+    rng = np.random.default_rng(22)
+    f = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32))
+    u = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.random(s).astype(np.float32))
+    cases = dict(
+        mse=(L.mse, (f(64, 64), f(64, 64))),
+        tv_loss=(L.tv_loss, (f(256, 256, 3),)),
+        eikonal_loss=(L.eikonal_loss, (f(4096, 3),)),
+        second_order_smoothness=(L.second_order_smoothness, (f(64, 99),)),
+        weighted_mse=(L.weighted_mse, (f(64, 64), f(64, 64), u(64, 64))),
+        cosine_distance=(L.cosine_distance, (f(4096, 3), f(4096, 3))),
+        iou_loss=(L.iou_loss, (u(4, 128, 128), u(4, 128, 128))),
+        kld_loss=(L.kld_loss, (f(64, 32), 0.3 * f(64, 32))))
+    errs = {}
+    for name, (fn, args) in cases.items():
+        a = args[0].clone().requires_grad_(True)
+        ac = args[0].to(dev).requires_grad_(True)
+        want = fn(a, *args[1:])
+        got = fn(ac, *[x.to(dev) for x in args[1:]])
+        want.backward()
+        got.backward()
+        errs[name] = max(_rel_err(got, want), _rel_err(ac.grad, a.grad))
+    mask = torch.from_numpy(synthetic.make_items(
+        img_w=1500, img_h=2048)["mask_img"])
+    img = u(2048, 1500, 3)
+    c_card = L.mask_center(mask.to(dev))
+    c_cpu = L.mask_center(mask)
+    crop_same = torch.equal(L.crop_square(img.to(dev), c_card, 512).cpu(),
+                            L.crop_square(img, c_cpu, 512))
+    gen = torch.Generator(device=dev).manual_seed(22)
+    draws = torch.stack([L.random_crop_center(gen, mask.to(dev), 512)
+                         for _ in range(64)]).cpu()
+    ys = torch.nonzero(mask.any(1))[:, 0]
+    xs = torch.nonzero(mask.any(0))[:, 0]
+    inside = bool(((draws[:, 0] >= xs.min()) & (draws[:, 0] <= xs.max())
+                   & (draws[:, 1] >= ys.min())
+                   & (draws[:, 1] <= ys.max())).all())
+    phase("leftovers", "(e) losses and gradients, card vs CPU: " + ", ".join(
+        f"{k} {e:.1e}" for k, e in errs.items())
+        + f" (limit {LOSS_RTOL:g}); mask_center {c_card.tolist()} "
+        f"(CPU {c_cpu.tolist()}), crop_square equal {crop_same}, 64 "
+        f"random_crop_center draws inside the mask's box {inside}")
+    if (max(errs.values()) > LOSS_RTOL or not torch.equal(c_card.cpu(), c_cpu)
+            or not crop_same or not inside):
+        raise AssertionError(f"losses card vs CPU {errs}")
+
+    class Items:
+        x = rng.random((4, 3, 64, 64)).astype(np.float32)
+
+        def __len__(self):
+            return len(self.x)
+
+        def __getitem__(self, i):
+            return dict(x=self.x[i], y=self.x[i][::-1].copy())
+
+    def trainer(d):
+        torch.manual_seed(22)
+        net = f2d.ConvStack(3, 3, 8, kernel_size=3, layer_num=2,
+                            use_relu=True, device=dev)
+        opt = torch.optim.Adam(net.parameters(), lr=1e-3)
+
+        def step(items, g):
+            opt.zero_grad(set_to_none=True)
+            x = items["x"][None] + 0.01 * torch.randn(
+                items["x"][None].shape, generator=g, device=g.device)
+            loss = L.mse(net(x), items["y"][None])
+            loss.backward()
+            opt.step()
+            return {"mse": loss.detach()}
+
+        opt_d = {"train": {"loss_weight": {"mse": 1.0}, "net_ckpt_dir": d,
+                           "ckpt_interval": {"epoch": 1, "batch": 3},
+                           "eval_interval": 3}}
+        tr = btr.BaseTrainer(opt_d, step, net, Items(), optimizer=opt,
+                             mini_test_fn=lambda t: tests.append(
+                                 t.iter_idx), device=dev)
+        tr.log_interval = 1
+        return tr
+
+    tests = []
+    d = os.path.join(root, "base_trainer")
+    a = trainer(d)
+    t0 = time.perf_counter()
+    a.train(iter_num=3, num_threads=2)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    files = sorted(os.listdir(d))
+    events = [f for sub in files if os.path.isdir(os.path.join(d, sub))
+              and not sub.startswith(("batch_", "epoch_"))
+              for f in os.listdir(os.path.join(d, sub))
+              if f.startswith("events.out.tfevents")]
+    with open(os.path.join(d, "loss.txt")) as fp:
+        lines = fp.read().splitlines()
+    b = trainer(os.path.join(root, "base_trainer_b"))
+    epoch = b.load_ckpt(os.path.join(d, "batch_3"))
+    same_w = all(torch.equal(v, b.net.state_dict()[k])
+                 for k, v in a.net.state_dict().items())
+    sa, sb = a.optimizer.state_dict()["state"], \
+        b.optimizer.state_dict()["state"]
+    same_opt = all(torch.equal(sa[p][k].cpu(), sb[p][k].cpu())
+                   for p in sa for k in ("exp_avg", "exp_avg_sq", "step"))
+    phase("leftovers", f"(e) BaseTrainer: 3 iterations on the card in "
+          f"{wall:.2f} s (loader start, checkpoints and TensorBoard "
+          f"included), iter {a.iter_idx} epoch {a.epoch_idx}, mini-tests at "
+          f"{tests}, files {files}, TensorBoard event files {len(events)}, "
+          f"loss.txt {len(lines)} lines (last: {lines[-1] if lines else ''!r})"
+          f"; resumed from batch_3: epoch {epoch} iter {b.iter_idx}, weights "
+          f"bit for bit {same_w}, Adam state bit for bit {same_opt}")
+    if not (a.iter_idx == b.iter_idx == 3 and epoch == 1 and same_w
+            and same_opt and len(lines) == 3 and events and tests == [3]
+            and {"batch_3", "epoch_1", "epoch_latest"} <= set(files)):
+        raise AssertionError("BaseTrainer on the card")
+
+
+def loader_phase(card: str, records: list, bare_step_ms: float,
+                 b2_step_ms: float) -> None:
+    """Phase 22: the slice that finished the port. (a) the loader-fed
+    train path (``loader_fed_part``), (b) the batched JPEG decode
+    (``decode_part``), (c) the body-model families
+    (``body_models_part``), (d) the 2D feature fields
+    (``feature2d_part``), (e) the losses and ``BaseTrainer``
+    (``leftovers_part``). Its files go to a directory under build/,
+    removed at the end."""
+    from animatablegaussians_torch.utils import cuda_build
+
+    t_phase = time.perf_counter()
+    cuda_build.BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="loader-", dir=cuda_build.BUILD_ROOT)
+    try:
+        t = time.perf_counter()
+        net = loader_fed_part(card, root, records, bare_step_ms, b2_step_ms)
+        phase("loader", f"(a) took {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        decode_part(card, root)
+        body_models_part(card, root)
+        phase("loader", f"(b), (c) took {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        feature2d_part(card, net)
+        del net
+        torch.cuda.empty_cache()
+        leftovers_part(card, root)
+        phase("loader", f"(d), (e) took {time.perf_counter() - t:.1f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    phase("loader", f"phase 22 took {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -4022,13 +4528,18 @@ def main() -> int:
 
         # -- 20. the train path's routes (on phase 15's capture) ----------
         torch.cuda.empty_cache()
-        routes_phase(card, tmp, driver_opt, records)
+        route_ms = routes_phase(card, tmp, driver_opt, records)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     # -- 21. the generic 3DGS layer on phase 3's Gaussians ---------------
     torch.cuda.empty_cache()
     gs3d_phase(card, gs3d_base, records)
+
+    # -- 22. the loader-fed train path, the batched decode, the body
+    # models, the 2D feature fields, the losses and BaseTrainer ----------
+    torch.cuda.empty_cache()
+    loader_phase(card, records, step_med, route_ms[(2, False)])
 
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -247,9 +247,12 @@ def test_dataset_items_match_jax(capture, route):
 
 
 def test_dataset_unported_routes_raise(capture, tmp_path):
-    """PoseDataset.getitem's NeRF rays stay refused, and a dataset mode
-    other than 3dgs and nerf is refused (the nerf mode is ported and held
-    in tests/test_torch_template_tools.py)."""
+    """A dataset mode other than 3dgs and nerf is refused (the nerf mode
+    is ported and held in tests/test_torch_template_tools.py), and
+    PoseDataset.getitem, refused until its NeRF item was ported, returns
+    rays inside the image that hit the live bounds (held against JAX in
+    tests/test_torch_animate_data.py and
+    tests/test_torch_template_leftovers.py)."""
     from animatablegaussians_torch.data import PoseDataset
     _, tds = capture
     with pytest.raises(ValueError, match="mode"):
@@ -257,8 +260,12 @@ def test_dataset_unported_routes_raise(capture, tmp_path):
     path = cf.write_pose_sequence(str(tmp_path / "thuman4_pose_00.npz"), 2)
     poses = PoseDataset(path, smpl_model_path=os.path.join(
         tds.data_dir, "SMPLX_SYNTH.npz"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        poses.getitem(0)
+    item = poses.getitem(0)
+    n = item["uv"].shape[0]
+    assert 0 < n <= item["img_w"] * item["img_h"]
+    assert item["ray_o"].shape == item["ray_d"].shape == (n, 3)
+    assert item["near"].shape == item["far"].shape == (n,)
+    assert (item["near"] < item["far"]).all()
 
 
 def test_actorshq_cameras_match_jax(tmp_path):
