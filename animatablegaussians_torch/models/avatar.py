@@ -39,6 +39,7 @@ from animatablegaussians_torch.models.styleunet import DualStyleUNet
 from animatablegaussians_torch.ops import quat as quat_ops
 from animatablegaussians_torch.ops.rasterize import render as splat
 from animatablegaussians_torch.utils.geometry import normalize_vert_bbox
+from animatablegaussians_torch.utils.profiling import span
 
 # consecutive texels per block of the packed point set when the config
 # sets no ``texel_block`` (the JAX package's default)
@@ -222,6 +223,7 @@ class AvatarNet(nn.Module):
         dots = torch.sum(live_nmls * viewdirs, dim=-1)
         return self._scatter_masked_half(dots)
 
+    @span("heads")
     def _encode_viewdirs(self, vmaps):
         """(B, H/2, W/2) half-res dot maps -> two (B, h, w, 128) NHWC
         features (front/back), each times ``weight_viewdirs``."""
@@ -324,6 +326,7 @@ class AvatarNet(nn.Module):
                 w * hand_vals["rotations"] + (1 - w) * rotations)
 
     # -- render (ref: avatar.py:161-239) ----------------------------------
+    @span("heads")
     def _head_outputs(self, pose_maps, front_vd, back_vd,
                       plain: bool = False, color_style=None):
         """(B, S, S, 3) pose maps -> three raw (B, S, S, 2C) outputs. With
@@ -341,22 +344,23 @@ class AvatarNet(nn.Module):
                        img_w, img_h, full=True, plain=False, hand_vals=None):
         """Masked select -> Gaussian attributes [-> mean hands] -> LBS ->
         splat for ONE frame, from raw (1, S, S, 2C) head outputs."""
-        sel = self._select_masked_dual([pos_out, other_out, color_out])
-        g = self.cano_gaussian
-        cano_pts = 0.05 * sel[:, :3] + g.xyz
-        opacity = torch.sigmoid(sel[:, 3:4] + g.opacity)
-        scales = torch.exp(sel[:, 4:7] + g.scaling)
-        rotations = quat_ops.normalize(sel[:, 7:11] + g.rotation)
-        colors = sel[:, 11:14]
-        if hand_vals is not None:
-            cano_pts, opacity, scales, rotations = self.blend_mean_hands(
-                hand_vals, cano_pts, opacity, scales, rotations, items)
-        gaussian_vals = dict(positions=cano_pts, opacity=opacity,
-                             scales=scales, rotations=rotations,
-                             colors=colors)
-        # pad points excluded: their CNN texels are garbage, not offsets
-        offset = (cano_pts - self.init_points) * self.valid_f[:, None]
-        gaussian_vals = self.transform_cano2live(gaussian_vals, items)
+        with span("select_skin"):
+            sel = self._select_masked_dual([pos_out, other_out, color_out])
+            g = self.cano_gaussian
+            cano_pts = 0.05 * sel[:, :3] + g.xyz
+            opacity = torch.sigmoid(sel[:, 3:4] + g.opacity)
+            scales = torch.exp(sel[:, 4:7] + g.scaling)
+            rotations = quat_ops.normalize(sel[:, 7:11] + g.rotation)
+            colors = sel[:, 11:14]
+            if hand_vals is not None:
+                cano_pts, opacity, scales, rotations = self.blend_mean_hands(
+                    hand_vals, cano_pts, opacity, scales, rotations, items)
+            gaussian_vals = dict(positions=cano_pts, opacity=opacity,
+                                 scales=scales, rotations=rotations,
+                                 colors=colors)
+            # pad points excluded: their CNN texels are garbage, not offsets
+            offset = (cano_pts - self.init_points) * self.valid_f[:, None]
+            gaussian_vals = self.transform_cano2live(gaussian_vals, items)
         img_w = int(items["img_w"]) if img_w is None else img_w
         img_h = int(items["img_h"]) if img_h is None else img_h
         out = splat(gaussian_vals["positions"], gaussian_vals["scales"],
@@ -378,6 +382,7 @@ class AvatarNet(nn.Module):
         return torch.as_tensor(bg_color, dtype=torch.float32,
                                device=self.lbs.device)
 
+    @span("render")
     def render(self, items: dict, bg_color=(0.0, 0.0, 0.0),
                img_w: Optional[int] = None, img_h: Optional[int] = None,
                training: bool = False, draws: Optional[dict] = None,
@@ -419,6 +424,7 @@ class AvatarNet(nn.Module):
                                        full=not training, plain=plain,
                                        hand_vals=hand_vals)
 
+    @span("render_sequence")
     @torch.no_grad()
     def render_sequence(self, items_seq: dict, bg_color=(0.0, 0.0, 0.0),
                         img_w: Optional[int] = None,

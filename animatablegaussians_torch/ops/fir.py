@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from animatablegaussians_torch.utils import cuda_build
+from animatablegaussians_torch.utils.profiling import count
 
 MAX_TAPS = 4   # the TPU kernel's HALO: taps per axis the kernel takes
 
@@ -193,7 +194,7 @@ def _launch(x: torch.Tensor, kv, kh, up: int, down: int,
                   torch._C._cuda_getCurrentRawStream(dev))
     if err:
         cuda_build.check(err, "upfirdn2d_fir")
-    upfirdn2d_fir.launches += 1
+    count("fir.launches")
     return out
 
 
@@ -270,6 +271,3 @@ def upfirdn2d_fir(x: torch.Tensor, kv: Sequence[float], kh: Sequence[float],
     if x.requires_grad and torch.is_grad_enabled():
         return _FIR.apply(x, *args)
     return _launch(x, *args)
-
-
-upfirdn2d_fir.launches = 0  # kernel launches; reset by whoever counts them

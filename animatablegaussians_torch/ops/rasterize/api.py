@@ -19,6 +19,8 @@ from __future__ import annotations
 
 import torch
 
+from animatablegaussians_torch.utils.profiling import span
+
 from ..sh import eval_sh
 from .binning import bin_gaussians
 from .blend import TILE, BlendTiles
@@ -79,29 +81,30 @@ def render(means3d, scales, rotations, opacities, colors, bg_color, extr,
     the plain versions."""
     if (colors is None) == (shs is None):
         raise ValueError("render takes colors or shs, not both or neither")
-    if colors is None:
-        colors = precompute_sh_colors(shs, max_sh_degree, means3d, extr)
-    tan_fovx = img_w / (2.0 * intr[0, 0])
-    tan_fovy = img_h / (2.0 * intr[1, 1])
-    viewmatrix, projmatrix = _full_projection(extr, intr, img_w, img_h)
+    with span("splat.preprocess"):
+        if colors is None:
+            colors = precompute_sh_colors(shs, max_sh_degree, means3d, extr)
+        tan_fovx = img_w / (2.0 * intr[0, 0])
+        tan_fovy = img_h / (2.0 * intr[1, 1])
+        viewmatrix, projmatrix = _full_projection(extr, intr, img_w, img_h)
 
-    pre = preprocess(means3d, scales, rotations, viewmatrix, projmatrix,
-                     tan_fovx, tan_fovy, img_w, img_h, scale_modifier)
-    if valid_mask is not None:
-        pre = pre._replace(valid=pre.valid & valid_mask,
-                           radii=torch.where(valid_mask, pre.radii,
-                                             torch.zeros_like(pre.radii)))
-    rows = _pack_rows(pre, opacities, colors)
+        pre = preprocess(means3d, scales, rotations, viewmatrix, projmatrix,
+                         tan_fovx, tan_fovy, img_w, img_h, scale_modifier)
+        if valid_mask is not None:
+            pre = pre._replace(valid=pre.valid & valid_mask,
+                               radii=torch.where(valid_mask, pre.radii,
+                                                 torch.zeros_like(pre.radii)))
+        rows = _pack_rows(pre, opacities, colors)
 
     grid_x = -(-img_w // TILE)
     grid_y = -(-img_h // TILE)
     with torch.no_grad():
         bins = bin_gaussians(pre.means2d, pre.depths, pre.radii, pre.valid,
                              img_w, img_h, TILE, plain=plain)
-    color, depth, t_final = BlendTiles.apply(rows, bins.gid, bins.starts,
-                                             grid_x, grid_y, img_w, img_h,
-                                             plain)
-    color = color + t_final[..., None] * bg_color.reshape(1, 1, 3)
+    with span("splat.blend"):
+        color, depth, t_final = BlendTiles.apply(
+            rows, bins.gid, bins.starts, grid_x, grid_y, img_w, img_h, plain)
+        color = color + t_final[..., None] * bg_color.reshape(1, 1, 3)
     return dict(render=color, depth=depth, mask=1.0 - t_final,
                 radii=pre.radii, visibility_filter=pre.radii > 0,
                 means2d=pre.means2d, n_pairs=bins.n_pairs)

@@ -19,6 +19,8 @@ from typing import NamedTuple
 
 import torch
 
+from animatablegaussians_torch.utils.profiling import count, span
+
 from .expand import expand_pairs, expand_pairs_plain
 
 
@@ -58,14 +60,21 @@ def bin_gaussians(means2d, depths, radii, valid, img_w: int, img_h: int,
     device (the reference the kernel is checked against)."""
     grid_x = -(-img_w // tile)
     grid_y = -(-img_h // tile)
-    rect, offs = pair_counts(means2d, radii, valid, grid_x, grid_y, tile)
-    total = int(offs[-1])                       # the one host sync per frame
-    expand = expand_pairs_plain if plain else expand_pairs
-    keys, gids = expand(rect, depths.to(torch.float32), offs, total, grid_x)
+    with span("splat.binning") as sp:
+        rect, offs = pair_counts(means2d, radii, valid, grid_x, grid_y, tile)
+        with span("wait.pairs"):
+            total = int(offs[-1])               # the one host sync per frame
+        count("host.waits")
+        count("splat.frames")
+        count("splat.pairs", total)
+        sp.set(pairs=total)
+        expand = expand_pairs_plain if plain else expand_pairs
+        keys, gids = expand(rect, depths.to(torch.float32), offs, total,
+                            grid_x)
 
-    keys, perm = torch.sort(keys, stable=True)
-    gid = gids[perm]
-    tiles = torch.arange(grid_x * grid_y + 1, device=keys.device,
-                         dtype=torch.int64)
-    starts = torch.searchsorted(keys >> 32, tiles)
+        keys, perm = torch.sort(keys, stable=True)
+        gid = gids[perm]
+        tiles = torch.arange(grid_x * grid_y + 1, device=keys.device,
+                             dtype=torch.int64)
+        starts = torch.searchsorted(keys >> 32, tiles)
     return TileBins(gid=gid, starts=starts, n_pairs=total)

@@ -25,6 +25,8 @@ from typing import Tuple
 
 import torch
 
+from animatablegaussians_torch.utils.profiling import count, span
+
 ALPHA_MIN = 1.0 / 255.0
 T_EPS = 1e-4
 ALPHA_CLAMP = 0.99
@@ -171,11 +173,8 @@ def blend_tiles(rows, gid, starts, grid_x: int, grid_y: int, img_w: int,
             order.data_ptr(), grid_x, grid_y, img_w, img_h, color.data_ptr(),
             depth.data_ptr(), t_final.data_ptr(), cuda_build.stream_of(rows))
     cuda_build.check(err, "blend_tiles")
-    blend_tiles.launches += 1
+    count("blend.fwd.launches")
     return color, depth, t_final
-
-
-blend_tiles.launches = 0  # kernel launches; reset by whoever counts them
 
 
 def blend_backward_plain(rows, gid, starts, grid_x: int, grid_y: int,
@@ -263,11 +262,8 @@ def blend_backward(rows, gid, starts, grid_x: int, grid_y: int, img_w: int,
             grid_y, img_w, img_h, *(a.data_ptr() for a in images),
             grad.data_ptr(), cuda_build.stream_of(rows))
     cuda_build.check(err, "blend_backward")
-    blend_backward.launches += 1
+    count("blend.bwd.launches")
     return grad
-
-
-blend_backward.launches = 0  # kernel launches; reset by whoever counts them
 
 
 class BlendTiles(torch.autograd.Function):
@@ -289,12 +285,13 @@ class BlendTiles(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_color, g_depth, g_tfinal):
-        rows, gid, starts, color, depth, t_final = ctx.saved_tensors
-        g_color, g_depth, g_tfinal = (
-            torch.zeros_like(out) if g is None else g
-            for g, out in ((g_color, color), (g_depth, depth),
-                           (g_tfinal, t_final)))
-        bwd = blend_backward_plain if ctx.plain else blend_backward
-        grad = bwd(rows, gid, starts, *ctx.args, color, depth, t_final,
-                   g_color, g_depth, g_tfinal)
+        with span("splat.blend_bwd"):
+            rows, gid, starts, color, depth, t_final = ctx.saved_tensors
+            g_color, g_depth, g_tfinal = (
+                torch.zeros_like(out) if g is None else g
+                for g, out in ((g_color, color), (g_depth, depth),
+                               (g_tfinal, t_final)))
+            bwd = blend_backward_plain if ctx.plain else blend_backward
+            grad = bwd(rows, gid, starts, *ctx.args, color, depth, t_final,
+                       g_color, g_depth, g_tfinal)
         return (grad,) + (None,) * 7

@@ -14,6 +14,8 @@ from typing import Tuple
 
 import torch
 
+from animatablegaussians_torch.utils.profiling import count
+
 
 def _keys(tile_id: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
     """int64 (tile << 32) | float_bits(depth); depth > 0 orders like its
@@ -66,8 +68,5 @@ def expand_pairs(rect: torch.Tensor, depth: torch.Tensor, offs: torch.Tensor,
             rect.data_ptr(), depth.data_ptr(), offs.data_ptr(), n, grid_x,
             keys.data_ptr(), gids.data_ptr(), cuda_build.stream_of(rect))
     cuda_build.check(err, "expand_pairs")
-    expand_pairs.launches += 1
+    count("expand.launches")
     return keys, gids
-
-
-expand_pairs.launches = 0  # kernel launches; reset by whoever counts them

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from animatablegaussians_torch.utils import visualize as viz
+from animatablegaussians_torch.utils.profiling import count, span
 
 # the item keys the render, render_sequence, get_pose_map and the mean-hand
 # blend read, moved to the device once a frame
@@ -228,8 +229,13 @@ def run_test(trainer, opt: dict) -> str:
     return output_dir
 
 
+@span("readback")
 def _to_u8(img: torch.Tensor) -> np.ndarray:
-    return (img.clamp(0, 1).cpu().numpy() * 255).astype(np.uint8)
+    with span("wait.readback"):
+        host = img.clamp(0, 1).cpu()
+    count("host.waits")
+    with span("readback.convert"):
+        return (host.numpy() * 255).astype(np.uint8)
 
 
 def _write_frame(item, items, extr, intr, img_w, img_h, output,

@@ -36,6 +36,7 @@ from typing import Optional
 import torch
 
 from animatablegaussians_torch.training import losses as L
+from animatablegaussians_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -82,6 +83,7 @@ def make_train_state(net, lr_init: float = 5e-4, iter_num: int = 800_000,
                                            finetune_color))
 
 
+@span("adam")
 def apply_update(state: TrainState) -> None:
     """One Adam update from the gradients in ``.grad``, then the schedule
     and the step count."""
@@ -162,6 +164,7 @@ def _loss_weights(loss_weight: dict, lpips) -> dict:
     return w
 
 
+@span("losses")
 def _item_terms(out: dict, items: dict, bg, draws: dict, iter_idx: int,
                 w: dict, patch_size: int, random_patch_after: int):
     """One rendered example's pixel and offset loss terms, and its
@@ -196,6 +199,7 @@ def _item_terms(out: dict, items: dict, bg, draws: dict, iter_idx: int,
     return terms, crop
 
 
+@span("losses")
 def _total(terms: dict, crops: list, w: dict, lpips):
     """The weighted total of the terms and of LPIPS, once on the stacked
     crops (contiguous, so one example and a batch of one run the same
@@ -254,12 +258,14 @@ def make_train_step(net, *, loss_weight: dict, lpips=None,
             lpips=lpips, random_bg_color=random_bg_color,
             patch_size=patch_size, random_patch_after=random_patch_after,
             img_w=img_w, img_h=img_h, plain=plain)
-        total.backward()
+        with span("backward"):
+            total.backward()
         return {k: v.detach() for k, v in terms.items()}
 
     def step(state: TrainState, items: dict, draws: dict):
-        terms = loss_and_grads(state, items, draws)
-        apply_update(state)
+        with span("train.step"):
+            terms = loss_and_grads(state, items, draws)
+            apply_update(state)
         return state, terms
 
     step.loss_and_grads = loss_and_grads
@@ -337,12 +343,14 @@ def make_train_step_batched(net, *, loss_weight: dict, lpips=None,
             lpips=lpips, random_bg_color=random_bg_color,
             patch_size=patch_size, random_patch_after=random_patch_after,
             img_w=img_w, img_h=img_h, plain=plain)
-        total.backward()
+        with span("backward"):
+            total.backward()
         return {k: v.detach() for k, v in terms.items()}
 
     def step(state: TrainState, batch: dict, draws: list):
-        terms = loss_and_grads(state, batch, draws)
-        apply_update(state)
+        with span("train.step"):
+            terms = loss_and_grads(state, batch, draws)
+            apply_update(state)
         return state, terms
 
     step.loss_and_grads = loss_and_grads

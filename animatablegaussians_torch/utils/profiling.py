@@ -11,22 +11,35 @@ The JAX package's ``trace_report`` maps anonymous XLA fusions to source
 lines through the compiled HLO (its ``jitted_fn`` / ``fn_args``
 arguments). Eager PyTorch has no fusions to resolve, and a kernel's name is
 its own; the port has no counterpart and refuses those arguments.
+
+The program's own record: ``span(name, **args)`` marks a stretch of host
+time (a context manager and a decorator) and ``count(name, n)`` adds to a
+named counter. Spans record only while a ``torch.profiler`` is recording
+(``torch.autograd.profiler._is_profiler_enabled``); otherwise a span is
+one bool test and records nothing. A record's times are ``time.time_ns()``,
+the clock of the profiler's trace: ``(ns - baseTimeNanoseconds) / 1000``
+is its ``ts``. ``trace`` writes the spans into the Chrome trace it
+exports. Counters are always on.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import functools
 import glob
 import gzip
+import itertools
 import json
 import os
 import tempfile
+import threading
 import time
 from collections import defaultdict
 from typing import Dict, Iterator
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 # the Chrome-trace categories of device work: kernels, copies and memsets
 DEVICE_KINDS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -94,17 +107,21 @@ class StageTimer:
 def trace(log_dir: str = os.path.join(tempfile.gettempdir(), "agt_trace")):
     """``torch.profiler`` capture around a code region (CPU ops, and the
     CUDA device's when there is one), written as a Chrome trace
-    ``<log_dir>/<time>.pt.trace.json`` (chrome://tracing, Perfetto)."""
+    ``<log_dir>/<time>.pt.trace.json`` (chrome://tracing, Perfetto) with
+    the program's spans of the region as events of category
+    ``program``."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
+    t0 = time.time_ns()
     with profile(activities=acts) as prof:
         yield log_dir
-    prof.export_chrome_trace(os.path.join(
-        log_dir, f"{time.time_ns()}.pt.trace.json"))
+    path = os.path.join(log_dir, f"{time.time_ns()}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    _add_spans(path, [r for r in spans() if r["start_ns"] >= t0])
 
 
 def time_fn(fn, *args, iters: int = 10, warmup: int = 2,
@@ -175,3 +192,191 @@ def trace_report(trace_dir: str, jitted_fn=None, fn_args=(),
         return f"no events of {DEVICE_KINDS} in {path}"
     return "\n".join(f"{d / 1e3:10.3f} ms {calls[n]:6d} calls  {n[:90]}"
                      for n, d in dur.most_common(top))
+
+
+# -- the program's spans and counters ---------------------------------------
+
+SPAN_CAP = 1 << 16      # records kept; later spans are dropped and counted
+DROPPED = "spans.dropped"
+
+_records: list = []
+_ids = itertools.count()  # next() is atomic: spans open on several threads
+_counters: Dict[str, int] = {}
+_counters_lock = threading.Lock()
+_local = threading.local()
+_main_stack: list = []  # the main thread's open spans
+
+
+class _Record:
+    __slots__ = ("id", "name", "start_ns", "end_ns", "parent", "call", "tid",
+                 "ident", "args", "depth")
+
+
+def _stack() -> list:
+    try:
+        return _local.stack
+    except AttributeError:
+        main = threading.current_thread() is threading.main_thread()
+        _local.stack = _main_stack if main else []
+        _local.tid = threading.get_native_id()
+        _local.ident = threading.get_ident()
+        return _local.stack
+
+
+def _wrap(name: str, args: dict, fn):
+    @functools.wraps(fn)
+    def wrapper(*a, **kw):
+        if not _autograd_profiler._is_profiler_enabled:
+            return fn(*a, **kw)
+        with _Open(name, args):
+            return fn(*a, **kw)
+    return wrapper
+
+
+class _Off:
+    """What ``span`` gives while no profiler records: nothing to do."""
+    __slots__ = ("name", "args")
+
+    def __init__(self, name: str, args: dict):
+        self.name, self.args = name, args
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def set(self, **args) -> None:
+        pass
+
+    def __call__(self, fn):
+        return _wrap(self.name, self.args, fn)
+
+
+_OFF: Dict[str, _Off] = {}
+
+
+class _Open:
+    """A span being recorded: a record from ``__enter__`` to ``__exit__``.
+    Its parent is the thread's innermost open span or, on a thread with
+    none open (the autograd engine's), the main thread's; a span with no
+    parent starts a call of its own."""
+    __slots__ = ("name", "args", "rec", "stack")
+
+    def __init__(self, name: str, args: dict):
+        self.name, self.args, self.rec, self.stack = name, args, None, None
+
+    def __enter__(self):
+        stack = _stack()
+        if len(_records) >= SPAN_CAP:
+            count(DROPPED)
+            return self
+        parent = stack[-1] if stack else (
+            _main_stack[-1] if _main_stack else None)
+        r = _Record()
+        r.id, r.name, r.args = next(_ids), self.name, dict(self.args)
+        r.parent = parent.id if parent is not None else None
+        r.call = parent.call if parent is not None else r.id
+        r.depth = parent.depth + 1 if parent is not None else 0
+        r.tid, r.ident, r.end_ns = _local.tid, _local.ident, None
+        _records.append(r)
+        stack.append(r)
+        self.rec, self.stack = r, stack
+        r.start_ns = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        r = self.rec
+        if r is not None:
+            r.end_ns = time.time_ns()
+            self.stack.remove(r)
+        return False
+
+    def set(self, **args) -> None:
+        """Adds ``args`` to the span's record (a value known only inside
+        it, such as a frame's pair count)."""
+        if self.rec is not None:
+            self.rec.args.update(args)
+
+    def __call__(self, fn):
+        return _wrap(self.name, self.args, fn)
+
+
+def span(name: str, **args):
+    """A named stretch of the program, recorded while a ``torch.profiler``
+    records: ``with span("heads"): ...`` or ``@span("heads")``, ``args``
+    small values kept with the record (``.set(**args)`` adds more inside
+    the block). Otherwise it records nothing and allocates nothing."""
+    if _autograd_profiler._is_profiler_enabled:
+        return _Open(name, args)
+    if args:
+        return _Off(name, args)
+    off = _OFF.get(name)
+    if off is None:
+        off = _OFF[name] = _Off(name, {})
+    return off
+
+
+def spans() -> list:
+    """The recorded spans, oldest first, as dicts: ``id``, ``name``,
+    ``start_ns`` and ``end_ns`` (``time.time_ns()``; ``end_ns`` None while
+    open), ``parent`` (an id or None), ``call`` (the id of the root span of
+    the call), ``tid`` (the host thread's native id, the ``tid`` of the
+    trace's host operations), ``ident`` (its ``threading.get_ident()``,
+    whose low 32 bits are the ``tid`` of the trace's CUDA runtime calls),
+    ``depth`` and ``args``."""
+    return [dict(id=r.id, name=r.name, start_ns=r.start_ns, end_ns=r.end_ns,
+                 parent=r.parent, call=r.call, tid=r.tid, ident=r.ident,
+                 depth=r.depth, args=dict(r.args)) for r in _records]
+
+
+def reset() -> None:
+    """Drops the recorded spans and their drop count."""
+    _records.clear()
+    reset_counters(DROPPED)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Adds ``n`` to the counter ``name``; always on."""
+    with _counters_lock:
+        _counters[name] = _counters.get(name, 0) + n
+
+
+def counters() -> Dict[str, int]:
+    """A copy of the counters: ``fir.launches``, ``expand.launches``,
+    ``blend.fwd.launches`` and ``blend.bwd.launches`` (the CUDA kernels'
+    launches), ``splat.frames`` and ``splat.pairs`` (frames binned and
+    their summed (Gaussian, tile) pairs), ``host.waits`` (the program's
+    waits for the device) and ``spans.dropped``."""
+    return dict(_counters)
+
+
+def reset_counters(*names: str) -> None:
+    """Zeroes the counters ``names``, or every counter."""
+    with _counters_lock:
+        if not names:
+            _counters.clear()
+        for n in names:
+            _counters.pop(n, None)
+
+
+def _add_spans(path: str, records: list) -> None:
+    """Writes span ``records`` (as ``spans()`` gives them) into the Chrome
+    trace at ``path`` as complete events of category ``program``, each on
+    its thread's row (the host operations' native thread ids), on the
+    trace's clock."""
+    with open(path) as f:
+        tr = json.load(f)
+    base = tr.get("baseTimeNanoseconds", 0)
+    pid = os.getpid()
+    for r in records:
+        if r["end_ns"] is None:
+            continue
+        tr["traceEvents"].append(dict(
+            ph="X", cat="program", name=r["name"], pid=pid, tid=r["tid"],
+            ts=(r["start_ns"] - base) / 1e3,
+            dur=(r["end_ns"] - r["start_ns"]) / 1e3,
+            args=dict(r["args"], id=r["id"], parent=r["parent"],
+                      call=r["call"])))
+    with open(path, "w") as f:
+        json.dump(tr, f, default=str)

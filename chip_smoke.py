@@ -311,6 +311,24 @@ import time
 import numpy as np
 import torch
 
+from animatablegaussians_torch.utils import profiling
+
+# the launch counter (utils/profiling.counters) of each kernel wrapper
+LAUNCH_COUNTER = {"expand_pairs": "expand.launches",
+                  "blend_tiles": "blend.fwd.launches",
+                  "blend_backward": "blend.bwd.launches",
+                  "upfirdn2d_fir": "fir.launches"}
+
+
+def reset_launches(fns) -> None:
+    """Zeroes the launch counters of the kernel wrappers ``fns``."""
+    profiling.reset_counters(*(LAUNCH_COUNTER[fn.__name__] for fn in fns))
+
+
+def launch_count(fn) -> int:
+    """The kernel wrapper ``fn``'s launches since its counter was reset."""
+    return profiling.counters().get(LAUNCH_COUNTER[fn.__name__], 0)
+
 # (Gaussian, tile) pairs the JAX package bins for this fixture at init
 # (its preprocess + tile_rect on exact-KNN scales, recomputed on the CPU by
 # tests/test_torch_rasterize.py::test_full_fixture_pair_count_matches_jax).
@@ -1204,14 +1222,13 @@ def driver_phase(card: str, bare_step_ms: float, records: list,
     AvatarTrainer.PRETRAIN_ITERS = DRIVER_PRETRAIN
     counted = (expand_pairs, blend_tiles, blend_backward,
                fir.upfirdn2d_fir)
-    for fn in counted:
-        fn.launches = 0
+    reset_launches(counted)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     trainer = main_avatar_torch.main(argv, num_epochs=1)
     wall = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    launches = {fn.__name__: fn.launches for fn in counted}
+    launches = {fn.__name__: launch_count(fn) for fn in counted}
     net = trainer.avatar_net
     n_steps = trainer.iter_idx
     n_eval = n_steps // opt["train"]["eval_interval"]
@@ -1448,14 +1465,13 @@ def animate_phase(card: str, tmp: str, opt: dict, seq_ms: float,
             torch.cuda.empty_cache()
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            for fn in counted:
-                fn.launches = 0
+            reset_launches(counted)
             t0 = time.perf_counter()
             trainer = main_avatar_torch.main(["-c", cfg, "-m", "test"])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-            launches = {fn.__name__: fn.launches for fn in counted}
+            launches = {fn.__name__: launch_count(fn) for fn in counted}
             for k, v in launches.items():
                 total[k] += v
             loop_ms = 1e3 * (frames[-1]["t"] - trainer.test_loop_t0) / len(
@@ -1828,8 +1844,7 @@ def eval_phase(card: str, tmp: str, opt: dict, records: list) -> None:
         raise AssertionError(f"eval: no checkpoint {ckpt} from phase 16")
 
     # the frames to score: the capture's own poses seen by its cameras
-    for fn in counted:
-        fn.launches = 0
+    reset_launches(counted)
     t0 = time.perf_counter()
     renders = {}
     for i, cam in enumerate(EVAL_CAMS):
@@ -1845,7 +1860,7 @@ def eval_phase(card: str, tmp: str, opt: dict, records: list) -> None:
         main_avatar_torch.main(["-c", cfg, "-m", "test"])
         renders[cam] = os.path.join(test["output_dir"], "rgb_map")
     torch.cuda.synchronize()
-    launches = {fn.__name__: fn.launches for fn in counted}
+    launches = {fn.__name__: launch_count(fn) for fn in counted}
     n = len(EVAL_CAMS) * len(frames)
     phase("eval", f"main_avatar_torch -m test, view_setting camera, "
           f"render_view_idx 0 and 1, phase 16's checkpoint: {n} frames in "
@@ -1907,8 +1922,7 @@ def eval_phase(card: str, tmp: str, opt: dict, records: list) -> None:
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for fn in counted:
-        fn.launches = 0
+    reset_launches(counted)
     t0 = time.perf_counter()
     card_scores = score("cuda", lp_card, timer, crops)
     score_s = time.perf_counter() - t0
@@ -1926,7 +1940,7 @@ def eval_phase(card: str, tmp: str, opt: dict, records: list) -> None:
     with timer.stage("fid"):
         fid_card = fid.compute_fid(fid_dirs["ours"], fid_dirs["gt"],
                                    inception, batch=EVAL_BATCH)
-    launches = {fn.__name__: fn.launches for fn in counted}
+    launches = {fn.__name__: launch_count(fn) for fn in counted}
     for rec in records:
         rec["eval_launches"] = launches[rec["name"]]
     phase("eval", f"kernel launches while scoring: {launches} (the scorer "
@@ -2200,8 +2214,7 @@ def template_phase(card: str, records: list) -> None:
         # 2. the template CLI: warm-up and timed iterations, the export
         counted = (expand_pairs, blend_tiles, blend_backward,
                    fir.upfirdn2d_fir)
-        for fn in counted:
-            fn.launches = 0
+        reset_launches(counted)
         stamps, terms = [], []
 
         def on_step(it, t):
@@ -2216,7 +2229,7 @@ def template_phase(card: str, records: list) -> None:
                                         str(n_iter)], on_step=on_step)
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        launches = {fn.__name__: fn.launches for fn in counted}
+        launches = {fn.__name__: launch_count(fn) for fn in counted}
         for r in records:
             r["template_launches"] = launches[r["name"]]
         for i, t in enumerate(terms):
@@ -2355,11 +2368,11 @@ def gan_phase(card: str, records: list) -> None:
                 return net(styles, cond, noise=noise, plain=plain)[0]
 
         torch.backends.cudnn.deterministic = True
-        fir.upfirdn2d_fir.launches = 0
+        reset_launches([fir.upfirdn2d_fir])
         out_k = fwd(False)
-        n_k = fir.upfirdn2d_fir.launches
+        n_k = launch_count(fir.upfirdn2d_fir)
         out_p = fwd(True)
-        n_p = fir.upfirdn2d_fir.launches - n_k
+        n_p = launch_count(fir.upfirdn2d_fir) - n_k
         torch.backends.cudnn.deterministic = False
         scale = float(out_p.abs().max())
 
@@ -2502,7 +2515,7 @@ def gan_phase(card: str, records: list) -> None:
         check(GAN_WARMUP, step())
     by_dir = {label: sum(1 for _, order, _ in launches if order == d)
               for d, (_, label) in enumerate(FIR_DIRECTIONS)}
-    fir.upfirdn2d_fir.launches = 0
+    reset_launches([fir.upfirdn2d_fir])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t_gan = []
@@ -2514,7 +2527,7 @@ def gan_phase(card: str, records: list) -> None:
         t_gan.append((time.perf_counter() - t0) * 1e3)
         check(GAN_WARMUP + 1 + i, terms)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    gan_launches = fir.upfirdn2d_fir.launches
+    gan_launches = launch_count(fir.upfirdn2d_fir)
     med = statistics.median(t_gan)
     phase("gan", f"FIR launches of one step by direction: {by_dir}; "
           f"{gan_launches} in {GAN_TIMED} timed steps")
@@ -3295,11 +3308,10 @@ def gs3d_phase(card: str, base: dict, records: list) -> None:
     kernels = (expand.expand_pairs, blend.blend_tiles, blend.blend_backward,
                fir.upfirdn2d_fir)
     torch.cuda.reset_peak_memory_stats()
-    for fn in kernels:
-        fn.launches = 0
+    reset_launches(kernels)
     r = gs3d_drive(base, dev, W, H)
     torch.cuda.synchronize()
-    launches = {fn.__name__: fn.launches for fn in kernels}
+    launches = {fn.__name__: launch_count(fn) for fn in kernels}
     want = dict(GS_LAUNCHES, upfirdn2d_fir=0)
     phase("gs3d", f"kernel launches in (a)-(d): {launches} (want {want}: "
           "the SH and colors= renders, three steps; no FIR)")
@@ -3503,12 +3515,11 @@ def loader_fed_part(card: str, root: str, records: list,
                 kept.append({k: v.clone() for k, v in batch.items()})
             return run(batch)
 
-        for fn in counted:
-            fn.launches = 0
+        reset_launches(counted)
         res = bl.timed_loop(run_keep, loader, LOADER_TIMED,
                             warm=LOADER_WARMUP,
                             sync=torch.cuda.synchronize)
-        launches = {fn.__name__: fn.launches for fn in counted}
+        launches = {fn.__name__: launch_count(fn) for fn in counted}
         want = dict(expand_pairs=b * n_total, blend_tiles=b * n_total,
                     blend_backward=b * n_total,
                     upfirdn2d_fir=n_total * (n_fir + n_fir_grad))
@@ -4059,12 +4070,11 @@ def main() -> int:
     kw = dict(bg_color=(1.0, 1.0, 1.0), img_w=W, img_h=H)
     n_fir, n_fir_grad = fir_count(net)
     fwd_kernels = (expand_pairs, blend_tiles, fir.upfirdn2d_fir)
-    for fn in fwd_kernels:
-        fn.launches = 0
+    reset_launches(fwd_kernels)
     out = net.render(items, **kw)
     out_seq = net.render_sequence(seq, **kw)
     torch.cuda.synchronize()
-    launches = {fn.__name__: fn.launches for fn in fwd_kernels}
+    launches = {fn.__name__: launch_count(fn) for fn in fwd_kernels}
     phase("slice", f"kernel launches in render + {FRAMES}-frame "
           f"render_sequence: {launches} (FIR: want {n_fir} each, one per "
           "FIR of the three heads)")
@@ -4175,8 +4185,7 @@ def main() -> int:
 
     before = {n: p.detach().clone() for n, p in net.named_parameters()}
     counted = (expand_pairs, blend_tiles, blend_backward, fir.upfirdn2d_fir)
-    for fn in counted:
-        fn.launches = 0
+    reset_launches(counted)
     torch.cuda.reset_peak_memory_stats()
     losses, t_step = [], []
     for i in range(n_steps):
@@ -4188,12 +4197,12 @@ def main() -> int:
             t_step.append((time.perf_counter() - t0) * 1e3)
         losses.append({k: float(v) for k, v in terms.items()})
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    launches = {fn.__name__: fn.launches for fn in counted}
+    launches = {fn.__name__: launch_count(fn) for fn in counted}
     want_fir = n_steps * (n_fir + n_fir_grad)
     phase("train", f"kernel launches in {n_steps} train steps: {launches} "
           f"(FIR: want {want_fir}, {n_fir} forward + {n_fir_grad} backward "
           "a step)")
-    if (blend_backward.launches != n_steps
+    if (launch_count(blend_backward) != n_steps
             or launches["upfirdn2d_fir"] != want_fir
             or min(launches.values()) == 0):
         raise AssertionError(f"train path kernel launches {launches}, want "
@@ -4346,9 +4355,9 @@ def main() -> int:
     # then run at the fixture's weights with those hands blended in
     hitems = {k: train_items[k] for k in rf.RENDER_KEYS + rf.HAND_KEYS}
     pose = hitems["smpl_pos_map"][..., :3]
-    fir.upfirdn2d_fir.launches = 0
+    reset_launches([fir.upfirdn2d_fir])
     hands = net.generate_mean_hands(pose)
-    n_hands = fir.upfirdn2d_fir.launches
+    n_hands = launch_count(fir.upfirdn2d_fir)
     hands_p = net.generate_mean_hands(pose, plain=True)
     hand_err = max(float((hands[k] - hands_p[k]).abs().max()) for k in hands)
     phase("hands", f"generate_mean_hands: {n_hands} FIR launches (want "
@@ -4357,9 +4366,9 @@ def main() -> int:
     if not (n_hands == n_fir and hand_err <= ATOL_FIR_IMG):
         raise AssertionError("generate_mean_hands: kernel path")
     net.load_state_dict(fixture_state)
-    fir.upfirdn2d_fir.launches = 0
+    reset_launches([fir.upfirdn2d_fir])
     h_kern = net.render(hitems, hand_vals=hands, **kw)
-    n_hands = fir.upfirdn2d_fir.launches
+    n_hands = launch_count(fir.upfirdn2d_fir)
     h_plain = net.render(hitems, hand_vals=hands, plain=True, **kw)
     if n_hands != n_fir:
         raise AssertionError(f"mean-hand render: {n_hands} FIR launches")
@@ -4399,9 +4408,9 @@ def main() -> int:
                for _ in range(n_b2 + SCAN_STEPS)]
     t_plain = step_bp.loss_and_grads(state, batch, b_draws[0])
     g_plain = grad_snapshot(net)
-    fir.upfirdn2d_fir.launches = 0
+    reset_launches([fir.upfirdn2d_fir])
     t_kern = step_b.loss_and_grads(state, batch, b_draws[0])
-    n_step = fir.upfirdn2d_fir.launches
+    n_step = launch_count(fir.upfirdn2d_fir)
     g_kern = grad_snapshot(net)
     net.zero_grad(set_to_none=True)
     phase("train_b2", f"B = {TRAIN_B} step: {n_step} FIR launches (want "
@@ -4422,8 +4431,7 @@ def main() -> int:
         raise AssertionError("batched step: kernel path disagrees")
     del g_plain, g_kern, step_bp
 
-    for fn in counted:
-        fn.launches = 0
+    reset_launches(counted)
     torch.cuda.reset_peak_memory_stats()
     t_b2 = []
     for i in range(n_b2):
@@ -4437,7 +4445,7 @@ def main() -> int:
         if not all(math.isfinite(v) for v in vals.values()):
             raise AssertionError(f"batched step {i}: non-finite {vals}")
     peak_b2 = torch.cuda.max_memory_allocated() / 2 ** 30
-    b2_launches = {fn.__name__: fn.launches for fn in counted}
+    b2_launches = {fn.__name__: launch_count(fn) for fn in counted}
     phase("train_b2", f"kernel launches in {n_b2} B = {TRAIN_B} steps: "
           f"{b2_launches}")
     if not (b2_launches["upfirdn2d_fir"] == n_b2 * (n_fir + n_fir_grad)
