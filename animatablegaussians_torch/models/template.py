@@ -22,6 +22,12 @@ inverted (``sdf = -raw``, outside < 0), and ``fuse_hands`` takes the density
 of ``-sdf``, as in the JAX package. The training draws (the stratified
 jitter's U(0, 1) and the view directions' N(0, 1)) come from a
 ``torch.Generator`` or, for a test, from ``draws``.
+
+Spans (``utils/profiling.span``, recorded only under a profiler):
+``template.near_far``, ``template.live2cano`` (blending weights, the
+inverse, the root finding), ``template.field`` (the SDF MLP, the eikonal
+``autograd.grad``, the texture MLP, the density), ``template.hands`` and
+``template.composite``.
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ from animatablegaussians_torch.ops.embedder import get_embedder
 from animatablegaussians_torch.ops.root_finding import root_finding
 from animatablegaussians_torch.utils import nerf as nerf_util
 from animatablegaussians_torch.utils.geometry import normalize_vert_bbox
+from animatablegaussians_torch.utils.profiling import span
 
 NONOPT_BONE_IDS = (7, 8, 10, 11)  # feet and toes skip the root finding
 
@@ -81,6 +88,7 @@ class TemplateNet(nn.Module):
             *wv.shape[:3], weight_volume.joint_num * 3)
 
     # -- canonical radiance field (ref: template.py:92-140) --------------
+    @span("template.field")
     def forward_cano_body_nerf(self, xyz, viewdirs,
                                compute_grad: bool = False) -> dict:
         if compute_grad:
@@ -120,6 +128,7 @@ class TemplateNet(nn.Module):
         return posed, torch.einsum("nxy,ny->nx", pt_mats[:, :3, :3],
                                    normals)
 
+    @span("template.live2cano")
     def transform_live2cano(self, posed_pts, items, normals=None,
                             near_thres: float = 0.08):
         mats = self._rigid_hand_mats(items["cano2live_jnt_mats"])
@@ -127,7 +136,7 @@ class TemplateNet(nn.Module):
             posed_pts.detach(), items["live_smpl_v"], items["smpl_faces"],
             items["smpl_lbs"], near_thres, method="barycentric")
         pt_mats = torch.einsum("nj,jxy->nxy", pts_w, mats)
-        inv = torch.linalg.inv(pt_mats)
+        inv, _ = torch.linalg.inv_ex(pt_mats)   # no wait for the status
         cano_pts = (torch.einsum("nxy,ny->nx", inv[:, :3, :3], posed_pts)
                     + inv[:, :3, 3])
         cano_normals = None
@@ -148,6 +157,7 @@ class TemplateNet(nn.Module):
         return cano_pts, cano_normals, near_flag
 
     # -- hand fusion (ref: template.py:146-202) ---------------------------
+    @span("template.hands")
     def fuse_hands(self, body_ret, posed_xyz, view_dirs, items,
                    space: str = "live") -> dict:
         mano_faces = items["mano_face_closed"]            # (F, 3)
@@ -239,17 +249,19 @@ class TemplateNet(nn.Module):
         if self.with_hand:
             ret = self.fuse_hands(ret, flat, viewdirs, items, space)
 
-        color = ret["color"].reshape(R, n_samples, 3)
-        density = ret["density"].reshape(R, n_samples, 1)
-        alpha = 1.0 - torch.exp(-density[..., 0] * dists)
-        raw = torch.cat([color, alpha[..., None]], -1)
-        rgb_map, _, acc_map, _, depth_map = nerf_util.raw2outputs(
-            raw, z_vals, white_bkgd=white_bkgd)
+        with span("template.composite"):
+            color = ret["color"].reshape(R, n_samples, 3)
+            density = ret["density"].reshape(R, n_samples, 1)
+            alpha = 1.0 - torch.exp(-density[..., 0] * dists)
+            raw = torch.cat([color, alpha[..., None]], -1)
+            rgb_map, _, acc_map, _, depth_map = nerf_util.raw2outputs(
+                raw, z_vals, white_bkgd=white_bkgd)
         out = dict(rgb_map=rgb_map, acc_map=acc_map, depth_map=depth_map)
         if "normal" in ret:
             out["normal"] = ret["normal"].reshape(R, n_samples, 3)
         return out
 
+    @span("template.near_far")
     def smpl_guided_near_far(self, items, ray_o, ray_d, near, far):
         """Near/far from the SMPL vertices' spheres, the AABB's where a ray
         misses them (ref: template.py:304-312)."""

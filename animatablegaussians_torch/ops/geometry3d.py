@@ -20,6 +20,8 @@ from typing import Optional
 
 import torch
 
+from animatablegaussians_torch.utils.profiling import count, span
+
 
 def _closest_vw(p, a, b, c):
     """Barycentric (v, w) of the closest point of triangle (a, b, c) to p,
@@ -104,26 +106,33 @@ def nearest_face(points: torch.Tensor, verts: torch.Tensor,
     ``PAIRS_PER_CHUNK`` (query, face) pairs.
 
     points (N, 3), verts (V, 3), faces (F, 3) int -> ((N,), (N,) int64,
-    (N, 3))."""
+    (N, 3)). One ``nearest_face`` span a call (args ``points``, ``faces``,
+    ``pairs``); the counters ``nearest_face.calls`` and
+    ``nearest_face.pairs`` add the call and its (point, face) pairs."""
+    n_pts, n_faces = points.shape[0], faces.shape[0]
+    count("nearest_face.calls")
+    count("nearest_face.pairs", n_pts * n_faces)
     if chunk is None:
-        chunk = max(1, PAIRS_PER_CHUNK // max(1, faces.shape[0]))
-    tri = verts[faces.long()]                            # (F, 3, 3)
-    a, b, c = tri[None, :, 0], tri[None, :, 1], tri[None, :, 2]
-    ds, idxs, bcs = [], [], []
-    for s in range(0, points.shape[0], chunk):
-        p = points[s:s + chunk, None, :]                 # (n, 1, 3)
-        v, w, ab, ac = _closest_vw(p, a, b, c)           # (n, F)
-        closest = a + v[..., None] * ab + w[..., None] * ac
-        d2 = torch.sum((closest - p) ** 2, -1)
-        del closest
-        idx = torch.argmin(d2, dim=1, keepdim=True)      # first of ties
-        vm = torch.gather(v, 1, idx)[:, 0]
-        wm = torch.gather(w, 1, idx)[:, 0]
-        ds.append(torch.sqrt(torch.gather(d2, 1, idx)[:, 0]))
-        idxs.append(idx[:, 0])
-        bcs.append(torch.stack([1.0 - vm - wm, vm, wm], dim=-1))
-        del v, w, d2
-    return torch.cat(ds), torch.cat(idxs), torch.cat(bcs)
+        chunk = max(1, PAIRS_PER_CHUNK // max(1, n_faces))
+    with span("nearest_face") as sp:
+        sp.set(points=n_pts, faces=n_faces, pairs=n_pts * n_faces)
+        tri = verts[faces.long()]                        # (F, 3, 3)
+        a, b, c = tri[None, :, 0], tri[None, :, 1], tri[None, :, 2]
+        ds, idxs, bcs = [], [], []
+        for s in range(0, n_pts, chunk):
+            p = points[s:s + chunk, None, :]             # (n, 1, 3)
+            v, w, ab, ac = _closest_vw(p, a, b, c)       # (n, F)
+            closest = a + v[..., None] * ab + w[..., None] * ac
+            d2 = torch.sum((closest - p) ** 2, -1)
+            del closest
+            idx = torch.argmin(d2, dim=1, keepdim=True)  # first of ties
+            vm = torch.gather(v, 1, idx)[:, 0]
+            wm = torch.gather(w, 1, idx)[:, 0]
+            ds.append(torch.sqrt(torch.gather(d2, 1, idx)[:, 0]))
+            idxs.append(idx[:, 0])
+            bcs.append(torch.stack([1.0 - vm - wm, vm, wm], dim=-1))
+            del v, w, d2
+        return torch.cat(ds), torch.cat(idxs), torch.cat(bcs)
 
 
 def barycentric_interpolate(vert_attrs: torch.Tensor, faces: torch.Tensor,

@@ -11,8 +11,12 @@ with fwd(xc) = sum_j w_j(xc) (R_j xc + t_j), J1 = sum_j w_j R_j and
 J2 = sum_j (R_j xc + t_j) outer grad w_j(xc): the weights sampled
 trilinearly from the weight volume, their gradients from the nearest voxel
 of the Sobel gradient volume. Ten iterations of batched (N, J) einsums and
-a batched 3x3 ``torch.linalg.solve``, under ``torch.no_grad()``: the
-inputs depend on no parameter.
+a batched 3x3 ``torch.linalg.solve_ex``, under ``torch.no_grad()``: the
+inputs depend on no parameter. ``solve_ex`` leaves the LU's status on the
+device (``torch.linalg.solve`` reads it on the host after each solve, a
+wait for the device in every iteration); a singular system gives
+non-finite values, as the reference's CUDA solve does. One ``root_finding`` span a call (arg
+``points``); the counter ``root_finding.points`` adds the call's points.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import torch
 
 from animatablegaussians_torch.ops.grid_sample import (
     sample_volume_nearest, sample_volume_trilinear)
+from animatablegaussians_torch.utils.profiling import count, span
 
 
 @torch.no_grad()
@@ -33,21 +38,25 @@ def root_finding(weight_volume: torch.Tensor,   # (X, Y, Z, J)
                  lam: float = 0.1,
                  iter_num: int = 10) -> torch.Tensor:
     J = weight_volume.shape[-1]
-    R = jnt_mats[:, :3, :3]
-    t = jnt_mats[:, :3, 3]
-    lo, hi = bounds[0], bounds[1]
-    extent = hi - lo
-    xc = xc_init
-    for _ in range(iter_num):
-        p = (xc - lo) / extent
-        w = sample_volume_trilinear(weight_volume, p)            # (N, J)
-        g = sample_volume_nearest(grad_volume, p).reshape(-1, J, 3)
+    count("root_finding.points", xt.shape[0])
+    with span("root_finding") as sp:
+        sp.set(points=xt.shape[0])
+        R = jnt_mats[:, :3, :3]
+        t = jnt_mats[:, :3, 3]
+        lo, hi = bounds[0], bounds[1]
+        extent = hi - lo
+        xc = xc_init
+        for _ in range(iter_num):
+            p = (xc - lo) / extent
+            w = sample_volume_trilinear(weight_volume, p)        # (N, J)
+            g = sample_volume_nearest(grad_volume, p).reshape(-1, J, 3)
 
-        fwd_sep = torch.einsum("jxy,ny->njx", R, xc) + t[None]   # (N, J, 3)
-        fwd = torch.einsum("nj,njx->nx", w, fwd_sep)
-        J1 = torch.einsum("nj,jxy->nxy", w, R)                   # (N, 3, 3)
-        J2 = torch.einsum("njx,njy->nxy", fwd_sep, g)
+            fwd_sep = torch.einsum("jxy,ny->njx", R, xc) + t[None]
+            fwd = torch.einsum("nj,njx->nx", w, fwd_sep)         # (N, 3)
+            J1 = torch.einsum("nj,jxy->nxy", w, R)               # (N, 3, 3)
+            J2 = torch.einsum("njx,njy->nxy", fwd_sep, g)
 
-        update = torch.linalg.solve(J1 + lam * J2, (fwd - xt)[..., None])
-        xc = xc - torch.clamp(update[..., 0], -0.01, 0.01)
-    return xc
+            update, _ = torch.linalg.solve_ex(J1 + lam * J2,
+                                              (fwd - xt)[..., None])
+            xc = xc - torch.clamp(update[..., 0], -0.01, 0.01)
+        return xc

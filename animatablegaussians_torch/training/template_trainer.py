@@ -8,6 +8,12 @@ Adam has optax's settings (b1 0.9, b2 0.999, eps 1e-8 outside the square
 root); with ``finetune_hand`` only ``left_hand`` and ``right_hand`` are in
 the optimizer, so nothing else moves, as optax's ``set_to_zero`` (ref:
 main_template.py:83-87).
+
+A step's spans (``utils/profiling.span``): ``template.step`` around it,
+``losses`` around the loss terms, ``backward`` around ``total.backward()``
+and ``adam`` around the optimizer's and the schedule's step, the names the
+avatar trainer uses; ``template.near_far`` around the depth-guided
+near/far as around the SMPL-guided one.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import torch
 
 from animatablegaussians_torch.training.lr_schedule import \
     get_learning_rate_schedule
+from animatablegaussians_torch.utils.profiling import span
 
 HAND_GROUPS = ("left_hand.", "right_hand.")
 
@@ -65,9 +72,12 @@ class TemplateStep:
         ray_o, ray_d = items["ray_o"], items["ray_d"]
         near, far = items["near"], items["far"]
         if self.use_depth:
-            valid = items["dist"] > 1e-6
-            near = torch.where(valid, items["dist"] - self.near_dist, near)
-            far = torch.where(valid, items["dist"] + self.near_dist, far)
+            with span("template.near_far"):
+                valid = items["dist"] > 1e-6
+                near = torch.where(valid, items["dist"] - self.near_dist,
+                                   near)
+                far = torch.where(valid, items["dist"] + self.near_dist,
+                                  far)
             ns = self.n_dg_samples
         else:
             if self.smpl_guided:
@@ -77,28 +87,32 @@ class TemplateStep:
         out = net.render_rays(items, ray_o, ray_d, near, far, n_samples=ns,
                               training=True, generator=generator,
                               draws=draws)
-        terms = {}
-        cl = torch.abs(out["rgb_map"] - items["color_gt"]).mean()
-        total = lw.get("color", 1.0) * cl
-        terms["color_loss_random"] = cl
-        ml = torch.abs(out["acc_map"] - items["mask_gt"]).mean()
-        total = total + lw.get("mask", 0.0) * ml
-        terms["mask_loss_random"] = ml
-        if "normal" in out and lw.get("eikonal", 0.0) > 0:
-            el = ((torch.linalg.norm(out["normal"], dim=-1) - 1.0)
-                  ** 2).mean()
-            total = total + lw["eikonal"] * el
-            terms["eikonal_loss"] = el
-        terms["total_loss"] = total
+        with span("losses"):
+            terms = {}
+            cl = torch.abs(out["rgb_map"] - items["color_gt"]).mean()
+            total = lw.get("color", 1.0) * cl
+            terms["color_loss_random"] = cl
+            ml = torch.abs(out["acc_map"] - items["mask_gt"]).mean()
+            total = total + lw.get("mask", 0.0) * ml
+            terms["mask_loss_random"] = ml
+            if "normal" in out and lw.get("eikonal", 0.0) > 0:
+                el = ((torch.linalg.norm(out["normal"], dim=-1) - 1.0)
+                      ** 2).mean()
+                total = total + lw["eikonal"] * el
+                terms["eikonal_loss"] = el
+            terms["total_loss"] = total
         return total, terms
 
     def __call__(self, items, generator=None, draws=None) -> dict:
-        self.optimizer.zero_grad(set_to_none=True)
-        total, terms = self.loss(items, generator, draws)
-        total.backward()
-        self.optimizer.step()
-        self.scheduler.step()
-        return {k: v.detach() for k, v in terms.items()}
+        with span("template.step"):
+            self.optimizer.zero_grad(set_to_none=True)
+            total, terms = self.loss(items, generator, draws)
+            with span("backward"):
+                total.backward()
+            with span("adam"):
+                self.optimizer.step()
+                self.scheduler.step()
+            return {k: v.detach() for k, v in terms.items()}
 
 
 # the dataset item's keys a template step reads besides the rays
