@@ -6,12 +6,15 @@ utils/posevocab_custom_ops/nearest_face.py:18-61, near_far_smpl.py:18-27)
 and ``utils/smpl_util.py:10-84``.
 
 Each query is a dense (chunk x faces) or (chunk x vertices) computation in
-plain PyTorch, chunked over the queries. ``nearest_face`` and
-``near_far_smpl`` run under ``torch.no_grad()``: their callers feed them
-data, never a parameter (the JAX model stops the gradient at their
-input), and autograd would otherwise keep every chunk's (chunk, F)
-intermediates. ``argmin`` / ``argmax`` ties go to the first index, as in
-JAX.
+plain PyTorch, chunked over the queries, except the nearest face on a GPU:
+``nearest_face`` runs ``nearest_face_plain`` for tensors on the CPU and
+the CUDA kernel ``csrc/nearest_face.cu`` for tensors on a CUDA device,
+with the same bits; it never falls back from one to the other.
+``nearest_face`` and ``near_far_smpl`` run under ``torch.no_grad()``:
+their callers feed them data, never a parameter (the JAX model stops the
+gradient at their input), and autograd would otherwise keep every chunk's
+(chunk, F) intermediates. ``argmin`` / ``argmax`` ties go to the first
+index, as in JAX.
 """
 
 from __future__ import annotations
@@ -97,42 +100,101 @@ PAIRS_PER_CHUNK = 2 ** 25
 
 
 @torch.no_grad()
+def nearest_face_plain(points: torch.Tensor, verts: torch.Tensor,
+                       faces: torch.Tensor, chunk: Optional[int] = None):
+    """``nearest_face`` in plain PyTorch, ``chunk`` query points at a time,
+    by default as many as make ``PAIRS_PER_CHUNK`` (query, face) pairs.
+    Ties go to the first face, a NaN distance before any other."""
+    n_pts, n_faces = points.shape[0], faces.shape[0]
+    if chunk is None:
+        chunk = max(1, PAIRS_PER_CHUNK // max(1, n_faces))
+    tri = verts[faces.long()]                            # (F, 3, 3)
+    a, b, c = tri[None, :, 0], tri[None, :, 1], tri[None, :, 2]
+    ds, idxs, bcs = [], [], []
+    for s in range(0, n_pts, chunk):
+        p = points[s:s + chunk, None, :]                 # (n, 1, 3)
+        v, w, ab, ac = _closest_vw(p, a, b, c)           # (n, F)
+        closest = a + v[..., None] * ab + w[..., None] * ac
+        d2 = torch.sum((closest - p) ** 2, -1)
+        del closest
+        idx = torch.argmin(d2, dim=1, keepdim=True)      # first of ties
+        vm = torch.gather(v, 1, idx)[:, 0]
+        wm = torch.gather(w, 1, idx)[:, 0]
+        ds.append(torch.sqrt(torch.gather(d2, 1, idx)[:, 0]))
+        idxs.append(idx[:, 0])
+        bcs.append(torch.stack([1.0 - vm - wm, vm, wm], dim=-1))
+        del v, w, d2
+    return torch.cat(ds), torch.cat(idxs), torch.cat(bcs)
+
+
+def _nearest_face_kernel(points: torch.Tensor, verts: torch.Tensor,
+                         faces: torch.Tensor):
+    """``csrc/nearest_face.cu``: three launches on the current stream
+    (stage the faces, search every pair, finish), outputs and scratch
+    allocated here. A vertex index outside [0, V) stops the kernel with
+    a CUDA error, as the plain version's gather does on the card."""
+    from animatablegaussians_torch.utils import cuda_build
+
+    n, n_faces = points.shape[0], faces.shape[0]
+    if (points.dtype != torch.float32 or verts.dtype != torch.float32
+            or points.dim() != 2 or points.shape[1] != 3
+            or verts.dim() != 2 or verts.shape[1] != 3
+            or faces.dim() != 2 or faces.shape[1] != 3
+            or faces.dtype not in (torch.int32, torch.int64)):
+        raise ValueError("nearest_face: want points (N, 3) and verts (V, 3) "
+                         "float32, faces (F, 3) int32 or int64")
+    if not (verts.device == faces.device == points.device):
+        raise ValueError("nearest_face: inputs on different devices")
+    if n_faces == 0:
+        raise ValueError("nearest_face: no faces")
+    if max(n, n_faces, verts.shape[0]) >= 2 ** 31:
+        raise ValueError("nearest_face: 2^31 or more points, vertices or "
+                         "faces")
+    points, verts = points.contiguous(), verts.contiguous()
+    faces = faces.long()
+    dev = points.device
+    staged = torch.empty((n_faces, 16), dtype=torch.float32, device=dev)
+    keys = torch.empty((n,), dtype=torch.int64, device=dev)
+    dist = torch.empty((n,), dtype=torch.float32, device=dev)
+    index = torch.empty((n,), dtype=torch.int64, device=dev)
+    bary = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    lib = cuda_build.load()
+    with torch.cuda.device(dev):
+        err = lib.ag_nearest_face(
+            points.data_ptr(), n, verts.data_ptr(), verts.shape[0],
+            faces.data_ptr(), faces.stride(0), faces.stride(1), n_faces,
+            staged.data_ptr(), keys.data_ptr(), dist.data_ptr(),
+            index.data_ptr(), bary.data_ptr(), cuda_build.stream_of(points))
+    cuda_build.check(err, "nearest_face")
+    count("nearest_face.launches")
+    return dist, index, bary
+
+
+@torch.no_grad()
 def nearest_face(points: torch.Tensor, verts: torch.Tensor,
                  faces: torch.Tensor, chunk: Optional[int] = None):
     """For each query point: the distance (not squared) to the nearest
     face, its index and the barycentric weights of the closest surface
-    point, by brute force over every face (ref: nearest_face.py:30-61).
-    ``chunk`` query points at a time, by default as many as make
-    ``PAIRS_PER_CHUNK`` (query, face) pairs.
+    point, by brute force over every face (ref: nearest_face.py:30-61):
+    ``nearest_face_plain`` on the CPU (``chunk`` points at a time),
+    ``csrc/nearest_face.cu`` on a GPU (``chunk`` unused).
 
     points (N, 3), verts (V, 3), faces (F, 3) int -> ((N,), (N,) int64,
     (N, 3)). One ``nearest_face`` span a call (args ``points``, ``faces``,
     ``pairs``); the counters ``nearest_face.calls`` and
-    ``nearest_face.pairs`` add the call and its (point, face) pairs."""
+    ``nearest_face.pairs`` add the call and its (point, face) pairs, and
+    ``nearest_face.launches`` a call that ran the kernel."""
     n_pts, n_faces = points.shape[0], faces.shape[0]
     count("nearest_face.calls")
     count("nearest_face.pairs", n_pts * n_faces)
-    if chunk is None:
-        chunk = max(1, PAIRS_PER_CHUNK // max(1, n_faces))
     with span("nearest_face") as sp:
         sp.set(points=n_pts, faces=n_faces, pairs=n_pts * n_faces)
-        tri = verts[faces.long()]                        # (F, 3, 3)
-        a, b, c = tri[None, :, 0], tri[None, :, 1], tri[None, :, 2]
-        ds, idxs, bcs = [], [], []
-        for s in range(0, n_pts, chunk):
-            p = points[s:s + chunk, None, :]             # (n, 1, 3)
-            v, w, ab, ac = _closest_vw(p, a, b, c)       # (n, F)
-            closest = a + v[..., None] * ab + w[..., None] * ac
-            d2 = torch.sum((closest - p) ** 2, -1)
-            del closest
-            idx = torch.argmin(d2, dim=1, keepdim=True)  # first of ties
-            vm = torch.gather(v, 1, idx)[:, 0]
-            wm = torch.gather(w, 1, idx)[:, 0]
-            ds.append(torch.sqrt(torch.gather(d2, 1, idx)[:, 0]))
-            idxs.append(idx[:, 0])
-            bcs.append(torch.stack([1.0 - vm - wm, vm, wm], dim=-1))
-            del v, w, d2
-        return torch.cat(ds), torch.cat(idxs), torch.cat(bcs)
+        if points.device.type == "cpu":
+            return nearest_face_plain(points, verts, faces, chunk)
+        if points.device.type != "cuda":
+            raise ValueError(f"nearest_face: unsupported device "
+                             f"{points.device}")
+        return _nearest_face_kernel(points, verts, faces)
 
 
 def barycentric_interpolate(vert_attrs: torch.Tensor, faces: torch.Tensor,

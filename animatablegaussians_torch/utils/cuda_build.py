@@ -35,6 +35,8 @@ SIGNATURES = {
     "ag_blend_backward": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                           _P, _P, _P],
     "ag_upfirdn2d_fir": [_P, _P, _P, _P],
+    "ag_nearest_face": [_P, _I, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P,
+                        _P],
 }
 
 _lib = None

@@ -144,14 +144,19 @@ itself. Phases, each printing a line, any failure exiting non-zero:
                 samples): tools/gen_weight_volume at 128^3 (stage
                 seconds, peak memory; the card against the CPU path at
                 16^3); main_template_torch.main for 2 warm-up and 10 timed
-                iterations (launch counters reset just before: no kernel
-                of the port may launch; finite losses; ms/iteration with
+                iterations (launch counters reset just before: no splat
+                or FIR kernel may launch, every nearest-face search goes
+                through its kernel; finite losses; ms/iteration with
                 host I/O, peak memory), the export at (256, 256, 128)
                 (SDF and marching-cubes seconds, the mesh's size); the bare
                 step, the device's busy share of one step, its stages'
                 device ms (the body's and the hands' nearest-face
                 searches, near_far_smpl, the root finding, the MLPs'
-                forward and double backward, Adam), one step at 64 rays
+                forward and double backward, Adam); the nearest-face
+                kernel (csrc/nearest_face.cu) against its plain version
+                at the step's shapes (points that differ in any bit,
+                kernel and plain ms, the bound, one launch a call); one
+                step at 64 rays
                 against the same step on the CPU (loss terms, gradients
                 per group); tools/gen_pos_maps on the exported template
                 (seconds, the map's shape and coverage, init_pts_lbs' row
@@ -317,7 +322,8 @@ from animatablegaussians_torch.utils import profiling
 LAUNCH_COUNTER = {"expand_pairs": "expand.launches",
                   "blend_tiles": "blend.fwd.launches",
                   "blend_backward": "blend.bwd.launches",
-                  "upfirdn2d_fir": "fir.launches"}
+                  "upfirdn2d_fir": "fir.launches",
+                  "nearest_face": "nearest_face.launches"}
 
 
 def reset_launches(fns) -> None:
@@ -1665,14 +1671,9 @@ def check_animation(name, test, trainer, frames, launches, wall, peak_gb,
             raise AssertionError(f"transform_pca: card vs CPU {rel}")
 
 
-def template_stage_ms(net, step, items, reps: int = 3) -> dict:
-    """Device ms (CUDA events, mean of ``reps`` after one warm-up) of the
-    template step's stages on ``items``' rays: the body's and the hands'
-    nearest-face searches, the SMPL-sphere near/far, the root finding, the
-    MLPs' forward with the eikonal normal and its double backward, and
-    Adam."""
-    from animatablegaussians_torch.ops import geometry3d as g3d
-    from animatablegaussians_torch.ops.root_finding import root_finding
+def template_samples(net, step, items) -> torch.Tensor:
+    """The template step's samples on ``items``' rays (rays x samples,
+    3), from the SMPL-guided near/far, without the depth jitter."""
     from animatablegaussians_torch.utils import nerf as nerf_util
 
     with torch.no_grad():
@@ -1681,7 +1682,20 @@ def template_stage_ms(net, step, items, reps: int = 3) -> dict:
                                              items["far"])
         pts, _ = nerf_util.sample_pts_on_rays(
             items["ray_o"], items["ray_d"], near, far, step.n_samples)
-        flat = pts.reshape(-1, 3)
+    return pts.reshape(-1, 3)
+
+
+def template_stage_ms(net, step, items, reps: int = 3) -> dict:
+    """Device ms (CUDA events, mean of ``reps`` after one warm-up) of the
+    template step's stages on ``items``' rays: the body's and the hands'
+    nearest-face searches (the kernel), the SMPL-sphere near/far, the root
+    finding, the MLPs' forward with the eikonal normal and its double
+    backward, and Adam."""
+    from animatablegaussians_torch.ops import geometry3d as g3d
+    from animatablegaussians_torch.ops.root_finding import root_finding
+
+    flat = template_samples(net, step, items)
+    with torch.no_grad():
         mats = net._rigid_hand_mats(items["cano2live_jnt_mats"])
         w, _ = g3d.calc_blending_weight(
             flat, items["live_smpl_v"], items["smpl_faces"],
@@ -1716,6 +1730,82 @@ def template_stage_ms(net, step, items, reps: int = 3) -> dict:
         "Adam": step.optimizer.step,
     }
     return {k: cuda_ms(fn, reps, warmup=1) for k, fn in stages.items()}
+
+
+def nearest_face_check(net, step, items) -> dict:
+    """The nearest-face kernel (``csrc/nearest_face.cu``) against
+    ``nearest_face_plain`` on the card at the template step's shapes: the
+    step's samples on ``items``' rays against the live body, each live
+    hand (the left one's faces flipped, as ``fuse_hands`` does) and a
+    closed hand of MANO's 778 vertices and 1,552 faces beside the right
+    one (the template cell's hand, ``portbench/template_inputs.ellipsoid``:
+    the capture's hands have 20 faces). Per
+    search: points whose distance, face or weights differ in any bit, the
+    kernel's and the plain version's device ms (CUDA events), the bound
+    (48 FP32 operations a pair at 67 TFLOP/s, the benchmark's count) and
+    one launch a call. Returns the kernel's JSON record."""
+    from animatablegaussians_torch.ops import geometry3d as g3d
+    from portbench.template_inputs import ellipsoid
+
+    flat = template_samples(net, step, items)
+    faces = items["mano_face_closed"]
+    hv, hf = ellipsoid(items["right_live_mano_v"].mean(0).cpu().numpy(),
+                       np.array([0.09, 0.03, 0.045]) * TPL_BODY_SCALE, "x",
+                       97, 9)
+    searches = {
+        "body": (items["live_smpl_v"], items["smpl_faces"]),
+        "left hand": (items["left_live_mano_v"], torch.flip(faces, [1])),
+        "right hand": (items["right_live_mano_v"], faces),
+        "a hand at MANO's counts": (
+            torch.as_tensor(hv, dtype=torch.float32, device=flat.device),
+            torch.as_tensor(hf, device=flat.device))}
+    bits = (lambda t: t.view(torch.int32))
+    rows = {}
+    for name, (v, f) in searches.items():
+        reset_launches([g3d.nearest_face])
+        profiling.reset_counters("nearest_face.calls")
+        got = g3d.nearest_face(flat, v, f)
+        want = g3d.nearest_face_plain(flat, v, f)
+        calls = profiling.counters().get("nearest_face.calls", 0)
+        launches = launch_count(g3d.nearest_face)
+        bad = ((bits(got[0]) != bits(want[0])) | (got[1] != want[1])
+               | (bits(got[2]) != bits(want[2])).any(-1))
+        pairs = flat.shape[0] * f.shape[0]
+        rows[name] = r = dict(
+            pairs=pairs, mismatching=int(bad.sum()),
+            max_d=float((got[0] - want[0]).abs().max()),
+            max_bary=float((got[2] - want[2]).abs().max()),
+            launches=launches, calls=calls,
+            ms=cuda_ms(lambda: g3d.nearest_face(flat, v, f), 10),
+            plain_ms=cuda_ms(lambda: g3d.nearest_face_plain(flat, v, f), 1,
+                             warmup=1),
+            bound_ms=bound(0.0, pairs * 48.0)[0])
+        phase("nearest_face", f"{name}: {flat.shape[0]} points x "
+              f"{f.shape[0]} faces, kernel against nearest_face_plain: "
+              f"{r['mismatching']} points differ in a bit (max |d| "
+              f"{r['max_d']:.3e}, max |weights| {r['max_bary']:.3e}); "
+              f"kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+              f"bound {r['bound_ms']:.4f} ms (operations, "
+              f"{100 * r['bound_ms'] / r['ms']:.2f}%); launches "
+              f"{launches} = calls {calls}: {launches == calls}")
+    if any(r["mismatching"] or r["launches"] != r["calls"]
+           for r in rows.values()):
+        raise AssertionError(f"nearest_face kernel vs plain: {rows}")
+    total = {k: sum(r[k] for r in rows.values())
+             for k in ("ms", "plain_ms", "bound_ms")}
+    phase("nearest_face", f"the four searches: kernel {total['ms']:.3f} "
+          f"ms, plain {total['plain_ms']:.3f} ms, bound "
+          f"{total['bound_ms']:.4f} ms")
+    return dict(
+        name="nearest_face", route="cuda",
+        source="animatablegaussians_torch/csrc/nearest_face.cu",
+        replaces="none: the JAX package's search is plain jnp; the "
+                 "published CUDA op utils/posevocab_custom_ops/"
+                 "nearest_face.py:30-61",
+        bound_ms=total["bound_ms"], bound_by="operations", library_ms=None,
+        max_abs_err=max(max(r["max_d"], r["max_bary"])
+                        for r in rows.values()),
+        ms=total["ms"], plain_ms=total["plain_ms"], searches=rows)
 
 
 def template_cpu_check(run, items, vol_path: str) -> None:
@@ -2122,11 +2212,12 @@ def eval_phase(card: str, tmp: str, opt: dict, records: list) -> None:
     del inception, inception_cpu, lp_card, batch, feats
 
 
-def template_phase(card: str, records: list) -> None:
+def template_phase(card: str, records: list) -> dict:
     """Phase 17: the template stack as a user runs it on a full-width
     capture of its own (see the module docstring); adds each kernel's
     launches in the template CLI's run (none) to its record as
-    ``template_launches``."""
+    ``template_launches``, and returns the nearest-face kernel's record
+    (``nearest_face_check``) with its launches in that run."""
     import glob
 
     import yaml
@@ -2134,6 +2225,7 @@ def template_phase(card: str, records: list) -> None:
     import main_template_torch
     from animatablegaussians_torch.data import MvRgbDatasetAvatarReX
     from animatablegaussians_torch.ops import fir
+    from animatablegaussians_torch.ops import geometry3d as g3d
     from animatablegaussians_torch.ops.rasterize.blend import (
         blend_backward, blend_tiles)
     from animatablegaussians_torch.ops.rasterize.expand import expand_pairs
@@ -2229,7 +2321,8 @@ def template_phase(card: str, records: list) -> None:
         # 2. the template CLI: warm-up and timed iterations, the export
         counted = (expand_pairs, blend_tiles, blend_backward,
                    fir.upfirdn2d_fir)
-        reset_launches(counted)
+        reset_launches(counted + (g3d.nearest_face,))
+        profiling.reset_counters("nearest_face.calls")
         stamps, terms = [], []
 
         def on_step(it, t):
@@ -2245,6 +2338,8 @@ def template_phase(card: str, records: list) -> None:
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         launches = {fn.__name__: launch_count(fn) for fn in counted}
+        nf_launches = launch_count(g3d.nearest_face)
+        nf_calls = profiling.counters().get("nearest_face.calls", 0)
         for r in records:
             r["template_launches"] = launches[r["name"]]
         for i, t in enumerate(terms):
@@ -2259,16 +2354,19 @@ def template_phase(card: str, records: list) -> None:
         tm = run.timings
         phase("template", f"main_template_torch --max_iters {n_iter}: "
               f"{wall:.1f} s; kernel launches {launches} (want 0 each: the "
-              f"template path runs none of the port's kernels); median "
+              f"template path runs no splat or FIR kernel), nearest_face "
+              f"{nf_launches} of {nf_calls} calls (want all); median "
               f"{statistics.median(it_ms):.2f} ms/iteration with host I/O "
               f"over {len(it_ms)} after {TPL_WARMUP} warm-up "
               f"{['%.1f' % t for t in it_ms]}; export at (256, 256, 128): "
               f"SDF {tm['sdf_s']:.2f} s, marching cubes {tm['mcubes_s']:.2f}"
               f" s, PLY {tm['write_s']:.2f} s, {run.n_verts} vertices, "
               f"{run.n_faces} faces; peak {peak:.2f} GiB ({card})")
-        if any(launches.values()) or not run.n_faces > 0:
+        if (any(launches.values()) or not nf_launches == nf_calls > 0
+                or not run.n_faces > 0):
             raise AssertionError(f"template: launches {launches}, "
-                                 f"{run.n_faces} faces")
+                                 f"nearest_face {nf_launches} of "
+                                 f"{nf_calls}, {run.n_faces} faces")
 
         smpl_lbs = run.dataset.smpl_model.data.lbs_weights.cpu().numpy()
         items = tt.template_items(run.dataset[0], smpl_lbs, dev)
@@ -2287,6 +2385,8 @@ def template_phase(card: str, records: list) -> None:
         phase("template", "stages of a step (device ms, CUDA events): "
               + ", ".join(f"{k} {v:.2f} ({100 * v / bare_med:.1f}%)"
                           for k, v in stages.items()))
+        nf_record = nearest_face_check(run.net, run.step, items)
+        nf_record["template_launches"] = nf_launches
         template_cpu_check(run, items, os.path.join(
             data_dir, "cano_weight_volume.npz"))
         del run, items
@@ -2317,6 +2417,7 @@ def template_phase(card: str, records: list) -> None:
             raise AssertionError("template: bad pose maps")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    return nf_record
 
 
 def gan_phase(card: str, records: list) -> None:
@@ -4544,7 +4645,7 @@ def main() -> int:
 
         # -- 17. the template stack on a capture of its own ---------------
         torch.cuda.empty_cache()
-        template_phase(card, records)
+        nf_record = template_phase(card, records)
 
         # -- 19. the StyleGAN2 family and one GAN step at full width ------
         torch.cuda.empty_cache()
@@ -4565,7 +4666,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     loader_phase(card, records, step_med, route_ms[(2, False)])
 
-    print(json.dumps({"kernels": records}))
+    print(json.dumps({"kernels": records + [nf_record]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
