@@ -59,7 +59,7 @@
 // ((x0 + x2) + x1, then + 0 so that a -0 result reads +0). torch.clamp(x,
 // min=eps) keeps a NaN; the divisions and the square root are IEEE. The
 // kernel and the plain version agree bit for bit on the card
-// (chip_smoke.py's nearest-face phase, tests/test_torch_nearest_face.py).
+// (tests/test_torch_nearest_face.py's gpu tests).
 
 #include <cuda_runtime.h>
 #include <stdint.h>

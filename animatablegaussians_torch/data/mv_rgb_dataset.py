@@ -31,7 +31,6 @@ from __future__ import annotations
 import csv
 import json
 import os
-import time
 from typing import Optional, Sequence
 
 import numpy as np
@@ -87,9 +86,7 @@ class MvRgbDatasetBase:
                               for v in self.used_cam_ids]
             self.filter_missing_files()
 
-        t0 = time.perf_counter()
         self._precompute_smpl(smpl_model_path, precompute_device)
-        self.smplx_s = time.perf_counter() - t0       # read by chip_smoke.py
 
         # canonical MANO hand crops, when the index maps exist
         # (ref: dataset_mv_rgb.py:94)
@@ -354,9 +351,7 @@ class MvRgbDatasetBase:
         6.4 GB), and takes the top eigenpairs of the centred Gram matrix
         X X^T in float64; the components are V^T = S^-1 U^T X. The Gram
         matrix needs every pair of frames, so X is stacked rather than
-        streamed (streaming would read every EXR twice).
-        ``pca_fit_s`` holds the seconds of the fit or the load."""
-        t0 = time.perf_counter()
+        streamed (streaming would read every EXR twice)."""
         path = os.path.join(self.data_dir, "smpl_pos_map",
                             "pca_%d.npz" % n_components)
         if os.path.exists(path):
@@ -369,7 +364,6 @@ class MvRgbDatasetBase:
         self.pos_map_mask = pca.pop("mask")
         self.pca = pca
         self._pca_on = {}
-        self.pca_fit_s = time.perf_counter() - t0
 
     def transform_pca(self, pose_conds, sigma_pca: float = 2.0):
         """Project (M, 3) masked texels (an array, or a tensor on any

@@ -22,7 +22,6 @@ from __future__ import annotations
 import json
 import os
 import pickle
-import time
 from typing import Optional
 
 import numpy as np
@@ -80,7 +79,6 @@ class PoseDataset:
                  constrain_leg_pose: bool = False,
                  smpl_model_path: Optional[str] = None,
                  mano_dir: Optional[str] = None):
-        t_init = time.perf_counter()
         self.data_path = data_path
         self.training = False
         self.gender = gender
@@ -127,9 +125,7 @@ class PoseDataset:
 
         self.smpl_shape = (np.zeros(10, np.float32) if smpl_shape is None
                            else np.asarray(smpl_shape, np.float32))
-        t0 = time.perf_counter()
         self._precompute_smpl(smpl_model_path)
-        self.smplx_s = time.perf_counter() - t0       # read by chip_smoke.py
 
         # canonical MANO hand crops, attached to every item: the mean-hand
         # blend reads them (ref: dataset_pose.py:199-201,436-437,529)
@@ -139,7 +135,6 @@ class PoseDataset:
              self.right_cano_mano_v, self.right_cano_mano_n) = \
                 commons.generate_two_manos(self.mano,
                                            self.cano_smpl["vertices"])
-        self.init_s = time.perf_counter() - t_init    # read by chip_smoke.py
 
     # ------------------------------------------------------------------
     def _load_poses(self, data_path: str):

@@ -19,7 +19,6 @@ dataset items and the file writes.
 from __future__ import annotations
 
 import os
-import time
 from functools import partial
 
 import numpy as np
@@ -91,9 +90,7 @@ def compute_view(view_setting: str, idx: int, object_center, global_orient,
 def run_test(trainer, opt: dict) -> str:
     """Render ``opt["test"]``'s poses with the trainer's AvatarNet and write
     the frames; returns the output directory. Sets ``trainer.test_datasets``
-    (the training dataset, which holds the PCA, and the pose dataset) and
-    ``trainer.test_loop_t0`` (``time.perf_counter()`` at the frame loop's
-    start)."""
+    (the training dataset, which holds the PCA, and the pose dataset)."""
     from animatablegaussians_torch.data import get_dataset_class
     from animatablegaussians_torch.data.pose_dataset import PoseDataset
     from animatablegaussians_torch.utils import exr
@@ -120,7 +117,7 @@ def run_test(trainer, opt: dict) -> str:
         dataset_name, seq_name = "training", ""
         use_pca = False
 
-    # the two datasets, for a caller that reads their timings or PCA
+    # the two datasets, for a caller that reads their poses or PCA
     trainer.test_datasets = dict(training=training_dataset, poses=dataset)
     if opt_test.get("prev_ckpt"):
         trainer.load_ckpt(opt_test["prev_ckpt"], load_optm=False)
@@ -198,7 +195,6 @@ def run_test(trainer, opt: dict) -> str:
 
     idx = 0
     n_frames = len(dataset)
-    trainer.test_loop_t0 = time.perf_counter()    # the frame loop's start
     while idx < n_frames:
         # stage up to seq_frames frames that share an image size
         staged = [prepare(idx)]

@@ -1,7 +1,7 @@
 """Loader-fed train throughput at the full-width fixture's size.
 
 Port of ``animatablegaussians_tpu/tools/bench_loader.py``. The bare train
-step (``chip_smoke.py`` phase 9) feeds one item that already lies on the
+step (the ``zzr-train-b1`` cell) feeds one item that already lies on the
 card; real training decodes a 1500x2048 JPEG, its mask and an EXR pose
 map per item and has to hide that host work behind the card's (the
 reference hides it in torch DataLoader workers, ref:

@@ -16,9 +16,9 @@ at most the span of those values (``contribution_span``). A flipped pixel
 flipped pixels of a frame to ``FLIP_SHARE`` of its covered pixels (alpha
 above 1/255 in the reference). Every other pixel is held to the tolerance.
 
-``tests/test_torch_animate.py`` (the port against the JAX package on the
-CPU) and ``chip_smoke.py`` phase 16 (the card's frames against the plain
-path) both use this rule.
+``tests/test_torch_animate.py`` uses this rule for the port against the
+JAX package on the CPU and, in its ``gpu`` test, for the card's frames
+against the plain path.
 """
 
 from __future__ import annotations
@@ -31,8 +31,9 @@ FLIP_ALPHA = 1.0 / 255
 # flipped pixels per covered pixel of the reference, about twice the
 # largest reading: the CPU parity test (tests/test_torch_animate.py, the
 # port against the JAX package) flips 0 to 5 pixels of a 128x128 frame with
-# 3,413 to 3,610 covered, at most 1.41e-3; chip_smoke.py phase 16 on the
-# H100 flips none in 26 frames with 8-10% of 1024x1024 covered (PERF.md)
+# 3,413 to 3,610 covered, at most 1.41e-3; the card against the plain path
+# on the H100 flipped none in 26 frames with 8-10% of 1024x1024 covered
+# (PERF.md)
 FLIP_SHARE = 3e-3
 COVERED = 1.0 / 255
 

@@ -23,8 +23,6 @@ The LBS queries and the skinning run on ``device``.
 from __future__ import annotations
 
 import os
-import time
-from typing import Optional
 
 import numpy as np
 import torch
@@ -96,15 +94,12 @@ def _template_mesh(data_dir: str):
 
 
 def generate(data_dir: str, dataset, smpl_model, map_size: int = MAP_SIZE,
-             device="cuda", timings: Optional[dict] = None) -> str:
+             device="cuda") -> str:
     """The whole bake over a built dataset (it holds the batched SMPL-X
-    results); returns the output directory. ``timings``, when given,
-    receives the seconds of the ``bake``, ``lbs`` and ``pose_maps``
-    stages."""
+    results); returns the output directory."""
     from animatablegaussians_torch.utils import exr
 
     dev = torch.device(device)
-    t0 = time.perf_counter()
     out_dir = os.path.join(data_dir, "smpl_pos_map")
     os.makedirs(out_dir, exist_ok=True)
     mesh = _template_mesh(data_dir)
@@ -119,7 +114,6 @@ def generate(data_dir: str, dataset, smpl_model, map_size: int = MAP_SIZE,
     exr.write_exr(os.path.join(out_dir, "cano_smpl_nml_map.exr"), nml_map)
     mask = np.linalg.norm(pos_map, axis=-1) > 0.0
     cano_pts = pos_map[mask]
-    t1 = time.perf_counter()
 
     vol_path = os.path.join(data_dir, "cano_weight_volume.npz")
     if mesh is not None and os.path.exists(vol_path):
@@ -135,7 +129,6 @@ def generate(data_dir: str, dataset, smpl_model, map_size: int = MAP_SIZE,
             np.asarray(smpl_model.faces, np.int64),
             smpl_model.data.lbs_weights.cpu().numpy(), device=dev)
     np.save(os.path.join(out_dir, "init_pts_lbs.npy"), pts_lbs)
-    t2 = time.perf_counter()
 
     # per-frame skinning without the root -> half-resolution pose maps
     # (ref: gen_pos_maps.py:141-162); the dataset holds the matrices
@@ -152,16 +145,12 @@ def generate(data_dir: str, dataset, smpl_model, map_size: int = MAP_SIZE,
         live_map[mask] = live.cpu().numpy()
         exr.write_exr(os.path.join(out_dir, "%08d.exr" % pose_idx),
                       live_map[::2, ::2])               # nearest x0.5
-    if timings is not None:
-        timings.update(bake=t1 - t0, lbs=t2 - t1,
-                       pose_maps=time.perf_counter() - t2)
     return out_dir
 
 
-def main(argv=None, device="cuda", timings: Optional[dict] = None) -> str:
+def main(argv=None, device="cuda") -> str:
     """Run the tool on ``argv`` (default: the command line) on ``device``
-    (``--device`` overrides it); returns the output directory. ``timings``,
-    when given, receives ``generate``'s stage seconds."""
+    (``--device`` overrides it); returns the output directory."""
     from argparse import ArgumentParser
     from animatablegaussians_torch.config import load_config
     from animatablegaussians_torch.data import get_dataset_class
@@ -179,7 +168,7 @@ def main(argv=None, device="cuda", timings: Optional[dict] = None) -> str:
     data_kw["load_smpl_pos_map"] = False
     dataset = ds_cls(**data_kw)
     out = generate(dataset.data_dir, dataset, dataset.smpl_model,
-                   device=dev, timings=timings)
+                   device=dev)
     print(f"# Wrote {out}")
     return out
 

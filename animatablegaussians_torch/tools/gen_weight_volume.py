@@ -24,8 +24,6 @@ face and KNN searches and the smoothing run on ``device``, chunked.
 from __future__ import annotations
 
 import os
-import time
-from typing import Optional
 
 import numpy as np
 import torch
@@ -113,15 +111,11 @@ def signed_distance(grid: torch.Tensor, verts: np.ndarray,
 def build_weight_volume(template_v: np.ndarray, template_f: np.ndarray,
                         smpl_v: np.ndarray, smpl_f: np.ndarray,
                         smpl_lbs: np.ndarray, res: int = RES,
-                        n_surface: int = 100_000, device="cuda",
-                        timings: Optional[dict] = None) -> dict:
-    """The npz's arrays. ``timings``, when given, receives the seconds of
-    the stages: ``surface`` (samples and their weights), ``knn``,
-    ``jacobi``, ``ori`` and ``sdf``."""
+                        n_surface: int = 100_000, device="cuda") -> dict:
+    """The npz's arrays."""
     from animatablegaussians_torch.ops.geometry3d import calc_blending_weight
 
     dev = torch.device(device)
-    clock = _Clock(dev, timings)
 
     def t(a, dtype=torch.float32):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
@@ -137,17 +131,12 @@ def build_weight_volume(template_v: np.ndarray, template_f: np.ndarray,
     with torch.no_grad():
         surf_w, _ = calc_blending_weight(surf_pts, sv, sf, sl,
                                          method="barycentric")
-    clock("surface")
     diff = knn_scatter_weights(grid, surf_pts, surf_w)
-    clock("knn")
     diff = jacobi_smooth(diff.reshape(res, res, res, -1), iters=10)
     diff = diff / torch.clamp(diff.sum(-1, keepdim=True), min=1e-8)
-    clock("jacobi")
     with torch.no_grad():
         ori, _ = calc_blending_weight(grid, sv, sf, sl, method="barycentric")
-    clock("ori")
     sdf = signed_distance(grid, template_v, template_f)
-    clock("sdf")
 
     def out(x, *shape):
         return x.reshape(*shape).cpu().numpy().astype(np.float32)
@@ -161,28 +150,9 @@ def build_weight_volume(template_v: np.ndarray, template_f: np.ndarray,
                                       smpl_v.max(0)]).astype(np.float32))
 
 
-class _Clock:
-    """Seconds since the last call, the device synchronised, into
-    ``timings[name]``."""
-
-    def __init__(self, dev: torch.device, timings: Optional[dict]):
-        self.dev, self.timings = dev, timings
-        self.t = time.perf_counter()
-
-    def __call__(self, name: str) -> None:
-        if self.timings is None:
-            return
-        if self.dev.type == "cuda":
-            torch.cuda.synchronize(self.dev)
-        now = time.perf_counter()
-        self.timings[name] = now - self.t
-        self.t = now
-
-
-def main(argv=None, device="cuda", timings: Optional[dict] = None) -> str:
+def main(argv=None, device="cuda") -> str:
     """Run the tool on ``argv`` (default: the command line) on ``device``
-    (``--device`` overrides it); returns the npz's path. ``timings``, when
-    given, receives ``build_weight_volume``'s stage seconds."""
+    (``--device`` overrides it); returns the npz's path."""
     from argparse import ArgumentParser
     from animatablegaussians_torch.config import load_config
     from animatablegaussians_torch.data import get_dataset_class
@@ -206,7 +176,7 @@ def main(argv=None, device="cuda", timings: Optional[dict] = None) -> str:
     data = build_weight_volume(
         tv, tf, dataset.cano_smpl["vertices"], smpl_f,
         dataset.smpl_model.data.lbs_weights.cpu().numpy(), res=args.res,
-        device=dev, timings=timings)
+        device=dev)
     path = os.path.join(dataset.data_dir, "cano_weight_volume.npz")
     np.savez(path, **data)
     print(f"# Wrote {path}")

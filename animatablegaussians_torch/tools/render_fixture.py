@@ -15,8 +15,8 @@ and the constants below hold the JAX train bench's settings
 (``bench.py:119-142``): Adam at 5e-4 on an 800k-step cosine schedule, L1 +
 0.1 LPIPS on a 512 crop + 0.005 offset, a random background, and LPIPS
 weights drawn at random from seed 7 (no LPIPS weight files are in the
-repository). ``chip_smoke.py`` renders, trains and times this fixture on
-the GPU.
+repository). The ``gpu`` tests render and train this fixture on the card
+(``tests/on_card.py``).
 """
 
 from __future__ import annotations

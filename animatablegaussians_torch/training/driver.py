@@ -108,11 +108,9 @@ class AvatarTrainer:
         self.epoch_idx = 0
         print(f"# JPEG codec: {image_io.CODEC}")
 
-        t0 = time.perf_counter()
         ds_cls = get_dataset_class(train.get("dataset",
                                              "MvRgbDatasetAvatarReX"))
         self.dataset = ds_cls(**train["data"])
-        self.dataset_init_s = time.perf_counter() - t0
 
         self.avatar_net = self._build_net(train["data"]["data_dir"],
                                           opt.get("model", {}), self.device)

@@ -19,7 +19,6 @@ near/far as around the SMPL-guided one.
 from __future__ import annotations
 
 import os
-import time
 from typing import Optional
 
 import numpy as np
@@ -27,6 +26,8 @@ import torch
 
 from animatablegaussians_torch.training.lr_schedule import \
     get_learning_rate_schedule
+from animatablegaussians_torch.utils.obj_io import (  # noqa: F401
+    save_mesh_as_ply)
 from animatablegaussians_torch.utils.profiling import span
 
 HAND_GROUPS = ("left_hand.", "right_hand.")
@@ -172,17 +173,14 @@ def generate_volume_points(bounds: np.ndarray, res) -> np.ndarray:
 
 @torch.no_grad()
 def test_geometry(net, items, space: str = "cano",
-                  testing_res=(256, 256, 128), chunk: int = 256 * 256,
-                  timings: Optional[dict] = None):
+                  testing_res=(256, 256, 128), chunk: int = 256 * 256):
     """The SDF on a ``testing_res`` grid over the canonical (or live)
     bounds, in chunks of ``chunk`` points on the net's device, then
     marching cubes and Sobel normals on the host -> (verts, faces,
-    normals). ``timings``, when given, receives ``sdf_s`` and
-    ``mcubes_s``."""
+    normals)."""
     from animatablegaussians_torch.utils.recon import (
         compute_sobel_normals, extract_mesh_from_sdf)
 
-    t0 = time.perf_counter()
     dev = next(net.parameters()).device
     bounds = np.asarray(items["live_bounds" if space == "live"
                               else "cano_bounds"])
@@ -197,7 +195,6 @@ def test_geometry(net, items, space: str = "cano",
             p, _ = net.transform_live2cano(p, items, near_thres=0.1)
         sdfs.append(net.forward_cano_body_nerf(p, None)["sdf"][:, 0])
     sdf = torch.cat(sdfs).cpu().numpy().reshape(testing_res)
-    t1 = time.perf_counter()
 
     # the net's sdf is inside-positive (ref: template.py:110); marching
     # cubes takes inside < level, so negate
@@ -206,15 +203,4 @@ def test_geometry(net, items, space: str = "cano",
                   * (np.asarray(testing_res) - 1)).astype(int), 0,
                  np.asarray(testing_res) - 1)
     normals = compute_sobel_normals(-sdf)[ii[:, 0], ii[:, 1], ii[:, 2]]
-    if timings is not None:
-        timings.update(sdf_s=t1 - t0, mcubes_s=time.perf_counter() - t1)
     return verts, faces, normals
-
-
-def save_mesh_as_ply(path: str, vertices, faces, normals=None):
-    """(ref: utils/obj_io.py save_mesh_as_ply)."""
-    from animatablegaussians_torch.utils.ply import write_ply
-    props = dict(x=vertices[:, 0], y=vertices[:, 1], z=vertices[:, 2])
-    if normals is not None:
-        props.update(nx=normals[:, 0], ny=normals[:, 1], nz=normals[:, 2])
-    write_ply(path, props, faces=np.asarray(faces, np.int32))

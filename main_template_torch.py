@@ -25,7 +25,6 @@ from __future__ import annotations
 
 import argparse
 import os
-import time
 from types import SimpleNamespace
 
 import numpy as np
@@ -42,9 +41,8 @@ def main(argv=None, device="cuda", testing_res=(256, 256, 128),
     (``--device`` overrides it). ``testing_res`` is the export's grid;
     ``on_step(it, terms)``, when given, is called after each iteration with
     the loss terms (tensors on the device). Returns a namespace with the
-    net, the optimizer, the step, the dataset, the export's ``timings``
-    (``sdf_s``, ``mcubes_s``), the mesh's ``n_verts`` / ``n_faces`` and the
-    ``template_path``."""
+    net, the optimizer, the step, the dataset, the mesh's ``n_verts`` /
+    ``n_faces`` and the ``template_path``."""
     parser = argparse.ArgumentParser()
     parser.add_argument("-c", "--config_path", type=str, required=True)
     parser.add_argument("--max_iters", type=int, default=150_000)
@@ -108,19 +106,16 @@ def main(argv=None, device="cuda", testing_res=(256, 256, 128),
                 break
 
     # the geometry export (ref: main_template.py:96-101)
-    timings = {}
     verts, faces, normals = tt.test_geometry(
         net, dataset.getitem(0, training=False), space="cano",
-        testing_res=tuple(testing_res), timings=timings)
+        testing_res=tuple(testing_res))
     path = os.path.join(data_dir, "template.ply")
-    t0 = time.perf_counter()
     tt.save_mesh_as_ply(path, verts, faces, normals)
-    timings["write_s"] = time.perf_counter() - t0
     print(f"# Exported template to {path} ({len(verts)} vertices, "
           f"{len(faces)} faces)")
     return SimpleNamespace(net=net, optimizer=optimizer, scheduler=scheduler,
                            step=step, dataset=dataset, iters=it,
-                           timings=timings, n_verts=len(verts),
+                           n_verts=len(verts),
                            n_faces=len(faces), template_path=path,
                            net_ckpt_dir=net_ckpt_dir)
 

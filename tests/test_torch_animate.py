@@ -13,8 +13,20 @@ in batches of ``seq_frames`` 2 (2 + 2 + 1 frames, through
 collected in memory through ``_write_frame`` in both packages and compared
 at tests/test_torch_avatar.py's ATOL (2e-4), but for the few pixels where a
 Gaussian's alpha sits within float32 rounding of the blend's 1/255 cutoff
-(``tools/frame_compare.py``'s rule, which chip_smoke.py phase 16 also
-uses); the file names must be equal.
+(``tools/frame_compare.py``'s rule); the file names must be equal.
+
+Marked ``gpu`` (skipped without a CUDA device): ``main_avatar_torch -m
+test`` as a user runs it on a full-width capture (on_card.write_capture)
+with the position and other heads' outputs zeroed, in three runs. A: 12
+THuman4-style poses, the free orbit with global_orient at 1024x1024, 4
+frames a render_sequence call, PCA with 2 components. B: 2 poses, the
+front view, fix_hand with a MANO directory at SMPL-X's 10,475 vertices,
+save_ply, save_tex_map and render_skeleton. C: run A at the default
+seq_frames, 8. Each run: the kernels' launches, the files' names by the
+JAX package's rule, each frame against the plain path's same call and
+against a render of the frame alone (the flip rule), the frames'
+coverage, the PLYs' positions bit for bit, transform_pca on the card
+against its float64 CPU version.
 """
 
 import dataclasses
@@ -42,7 +54,10 @@ from animatablegaussians_torch.training import checkpoint as ck
 from animatablegaussians_torch.training.driver import AvatarTrainer
 from animatablegaussians_torch.utils import visualize as tviz
 from animatablegaussians_torch.utils.convert import params_from_jax
-from tests.test_torch_driver import _make_opt
+from test_torch_driver import _make_opt
+from on_card import (ANIM_COVER_MIN, ATOL_BLEND, ATOL_FIR_IMG,  # noqa
+                     card, fir_count, kernels, launches, render_checkpoint,
+                     reset_launches, write_capture, write_config)
 
 import main_avatar_torch
 
@@ -329,3 +344,176 @@ print("ok")
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("ok")
+
+
+# ---------------------------------------------------------------------------
+# on the card, at full width
+# ---------------------------------------------------------------------------
+
+# run A's novel poses, frames a render_sequence call and PCA components
+# (the capture's 3 training frames allow at most 3; the shipped configs'
+# 20 wait for a real capture); run B's frames
+ANIM_FRAMES, ANIM_SEQ, ANIM_PCA, ANIM_B_FRAMES = 12, 4, 2, 2
+# transform_pca on the card against its float64 CPU version, relative to
+# the largest entry: the same float64 arithmetic on two devices
+RTOL_PCA = 1e-5
+
+
+@pytest.fixture(scope="module")
+def card_runs(card, tmp_path_factory):
+    """The capture, its render checkpoint and the three runs' tests."""
+    tmp = str(tmp_path_factory.mktemp("animate"))
+    opt = write_capture(tmp)
+    ckpt = render_checkpoint(opt, os.path.join(tmp, "animate_ckpt"), card)
+    pose_data = dict(data_path=cf.write_pose_sequence(
+        os.path.join(tmp, "thuman4", "pose_00.npz"), ANIM_FRAMES, seed=16),
+        smpl_model_path=opt["train"]["data"]["smpl_model_path"])
+    mano = cf.write_mano(os.path.join(tmp, "mano"),
+                         n_verts_total=cf.FULL["n_verts"])
+    free = dict(pose_data=pose_data, view_setting="free", global_orient=True,
+                img_scale=1.0, n_pca=ANIM_PCA, sigma_pca=2.0)
+    runs = {
+        "A": dict(free, seq_frames=ANIM_SEQ),
+        "B": dict(pose_data=dict(pose_data, frame_range=[0, ANIM_B_FRAMES],
+                                 mano_dir=mano),
+                  view_setting="front", img_scale=1.0, n_pca=-1,
+                  fix_hand=True, fix_hand_id=1, save_ply=True,
+                  save_tex_map=True, render_skeleton=True),
+        "C": free}
+    return tmp, opt, {k: dict(v, prev_ckpt=ckpt, output_dir=os.path.join(
+        tmp, f"animate_{k}")) for k, v in runs.items()}
+
+
+def _jax_file_indices(pose_list) -> list:
+    """The frame file indices the JAX package's PoseDataset gives in
+    run_test's call order (getitem_fast(0), then every index): a pose
+    not past the last index takes the last + 1, pose 0 stays 0
+    (animatablegaussians_tpu/data/pose_dataset.py:295-321)."""
+    last, out = 0, []
+    for i in [0] + list(range(len(pose_list))):
+        p = pose_list[i]
+        last = p if (p == 0 or p > last) else last + 1
+        out.append(last)
+    return out[1:]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("run", ["A", "B", "C"])
+def test_animation_entry_point_on_a_full_width_capture(card, card_runs,
+                                                       monkeypatch, run):
+    from animatablegaussians_torch.utils import exr
+    tmp, opt, runs = card_runs
+    test = runs[run]
+    cfg = write_config(dict(opt, test=test),
+                       os.path.join(tmp, f"animate_{run}.yaml"))
+    frames = []
+    inner_write = tanimate._write_frame
+
+    def write(item, items, extr, intr, img_w, img_h, output, *rest):
+        inner_write(item, items, extr, intr, img_w, img_h, output, *rest)
+        frames.append(dict(item=item, items=items, size=(img_w, img_h),
+                           output=output))
+
+    monkeypatch.setattr(tanimate, "_write_frame", write)
+    reset_launches(*kernels())
+    trainer = main_avatar_torch.main(["-c", cfg, "-m", "test"],
+                                     device=str(card))
+    n_launch = launches(*kernels())
+    net = trainer.avatar_net
+    poses = trainer.test_datasets["poses"]
+    n = len(frames)
+    # calls to the heads: one a render_sequence batch (one a frame with
+    # the exports), and the mean hands'
+    per = 1 if (test.get("save_ply") or test.get("save_tex_map")) else int(
+        test.get("seq_frames", 8))
+    calls = -(-n // per) + bool(test.get("fix_hand"))
+    assert n == len(poses)
+    assert n_launch == {"expand_pairs": n, "blend_tiles": n,
+                        "blend_backward": 0,
+                        "upfirdn2d_fir": calls * fir_count(net)[0]}
+
+    # the file names and counts: the JAX package's rule, one per frame
+    names = ["%08d" % i for i in _jax_file_indices(poses.pose_list)]
+    folders = {"rgb_map": ".jpg", "mask_map": ".png"}
+    if test.get("save_tex_map"):
+        folders["cano_tex_map"] = ".jpg"
+    if test.get("render_skeleton"):
+        folders["live_skeleton"] = ".jpg"
+    if test.get("save_ply"):
+        folders["posed_gaussians"] = ".ply"
+    out_dir = test["output_dir"]
+    assert {f: sorted(os.listdir(os.path.join(out_dir, f)))
+            for f in sorted(os.listdir(out_dir))} == {
+        f: [x + e for x in names] for f, e in sorted(folders.items())}
+    assert [f["item"]["data_idx"] for f in frames] == [int(x) for x in names]
+
+    # the mean hands of the plain path, from the same fixed frame
+    hand_vals = None
+    if test.get("fix_hand"):
+        m = exr.read_exr(os.path.join(opt["train"]["data"]["data_dir"],
+                                      "smpl_pos_map",
+                                      "%08d.exr" % test["fix_hand_id"]))
+        half = m.shape[1] // 2
+        hand_vals = net.generate_mean_hands(torch.as_tensor(
+            np.concatenate([m[:, :half], m[:, half:]], axis=2)[..., :3],
+            device=net.lbs.device), plain=True)
+    # each frame against the plain path on the same items: the same call
+    # (a render_sequence batch, or a render) at ATOL_BLEND, and a render of
+    # the frame alone, whose batch-1 convs sum in another order than the
+    # batch's, at ATOL_FIR_IMG; in both, but for the pixels where an alpha
+    # decision flips (tools/frame_compare.py's rule, with the span of one
+    # contribution from the frame's posed Gaussians)
+    kw = dict(bg_color=(1.0, 1.0, 1.0), img_w=frames[0]["size"][0],
+              img_h=frames[0]["size"][1], use_pca=test["n_pca"] >= 1,
+              hand_vals=hand_vals, plain=True)
+    atol_alone = dict.fromkeys(ATOL_BLEND, ATOL_FIR_IMG)
+    same, alone = [], []
+    for b in range(0, n, per):
+        batch = frames[b:b + per]
+        assert all(f["size"] == frames[0]["size"] for f in batch)
+        if len(batch) > 1:
+            out = net.render_sequence({k: torch.stack(
+                [f["items"][k] for f in batch]) for k in batch[0]["items"]},
+                **kw)
+            refs = [{k: v[i] for k, v in out.items()}
+                    for i in range(len(batch))]
+        else:
+            refs = [net.render(batch[0]["items"], **kw)]
+        for f, ref in zip(batch, refs):
+            o = f["output"]
+            for k in ("rgb_map", "depth_map", "mask_map"):
+                assert torch.isfinite(o[k]).all(), k
+            one = ref if len(batch) == 1 else net.render(f["items"], **kw)
+            g = one["posed_gaussians"]
+            span = fc.contribution_span(
+                g["positions"][net.valid], g["colors"][net.valid],
+                f["items"]["extr"], kw["bg_color"])
+            same.append(fc.flip_diff(o, ref, ATOL_BLEND, span))
+            if len(batch) > 1:
+                alone.append(fc.flip_diff(o, one, atol_alone, span))
+            if test.get("save_ply"):
+                ply = tgm.load_gaussians_from_ply(os.path.join(
+                    out_dir, "posed_gaussians",
+                    "%08d.ply" % f["item"]["data_idx"]))
+                pos = o["posed_gaussians"]["positions"][net.valid].cpu()
+                assert ply["positions"].shape == (net.n_valid, 3)
+                assert torch.equal(torch.from_numpy(ply["positions"]), pos)
+            del one, g
+        del refs
+    print(f"run {run}, against the plain path's same call: "
+          + fc.flip_summary(same, ATOL_BLEND)
+          + (f"; against the frame alone: "
+             + fc.flip_summary(alone, atol_alone) if alone else ""))
+    assert fc.flips_ok(same, ATOL_BLEND) and fc.flips_ok(alone, atol_alone)
+    assert min(d["in_view"] for d in same) >= ANIM_COVER_MIN
+
+    if test["n_pca"] >= 1:
+        # transform_pca on the card against its float64 CPU version, on
+        # the last frame's regenerated pose map
+        fit = trainer.test_datasets["training"]
+        pm = frames[-1]["items"]["smpl_pos_map"][..., :3]
+        rows = pm[torch.as_tensor(fit.pos_map_mask, device=pm.device)]
+        dev_out = fit.transform_pca(rows, sigma_pca=2.0).cpu().double()
+        cpu_out = fit.transform_pca(rows.cpu().double(), sigma_pca=2.0)
+        rel = float((dev_out - cpu_out).abs().max() / cpu_out.abs().max())
+        assert rel <= RTOL_PCA, rel

@@ -37,7 +37,7 @@ from animatablegaussians_torch.utils import cameras as tcam
 from animatablegaussians_torch.utils import exr
 from animatablegaussians_torch.utils import ply as tply
 from animatablegaussians_torch.utils import visualize as tviz
-from tests.test_torch_data import _compare_items
+from test_torch_data import _compare_items
 
 PCA_RTOL = 1e-4
 

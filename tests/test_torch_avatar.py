@@ -4,7 +4,12 @@ across by params_from_jax, the pieces of the slice one by one, the mean-hand
 render and the pose-map regeneration, the import_avatar_params round trip,
 the model keys ``weight_viewdirs`` and ``texel_block`` (``remat`` and
 ``random_style`` are held in tests/test_torch_remat.py), and a subprocess
-check that the port renders without importing jax."""
+check that the port renders without importing jax.
+
+Marked ``gpu`` (skipped without a CUDA device), on the full-width
+fixture: generate_mean_hands and a render with the mean hands blended in
+through the kernels against ``plain=True``, and a render from the pose map
+get_pose_map regenerates, with the points the mean hands move."""
 
 import dataclasses
 import os
@@ -27,6 +32,8 @@ from animatablegaussians_torch.models.avatar import AvatarNet as TAvatarNet
 from animatablegaussians_torch.tools.render_fixture import (
     hand_items, zero_head_outputs)
 from animatablegaussians_torch.utils.convert import params_from_jax
+from on_card import (ATOL_FIR_IMG, card, compare_images, fir_count,  # noqa
+                     full_width, launches, reset_launches, train_kw)
 
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -382,3 +389,57 @@ def test_port_renders_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("ok")
+
+
+# ---------------------------------------------------------------------------
+# on the card, at full width
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+def test_mean_hands_through_the_kernels_at_full_width(full_width, train_kw):
+    """The mean hands come from weights three train steps moved (at the
+    fixture's, the position and other heads output 0 for any pose map,
+    and the hands would equal every frame's own Gaussians); the renders
+    then run at the fixture's weights with those hands blended in."""
+    from animatablegaussians_torch.ops import fir
+    from animatablegaussians_torch.tools import render_fixture as rf
+    from animatablegaussians_torch.training import avatar_trainer as at
+    net, items, fixture = full_width
+    net.load_state_dict(fixture)
+    state = at.make_train_state(net, rf.LR_INIT, rf.ITER_NUM)
+    step = at.make_train_step(net, **train_kw)
+    gen = torch.Generator(device=items["extr"].device).manual_seed(13)
+    for _ in range(3):
+        state, _ = step(state, items, at.make_draws(gen, net.n_points))
+    del state, step
+    n_fir = fir_count(net)[0]
+    hitems = {k: items[k] for k in rf.RENDER_KEYS + rf.HAND_KEYS}
+    pose = hitems["smpl_pos_map"][..., :3]
+    reset_launches(fir.upfirdn2d_fir)
+    hands = net.generate_mean_hands(pose)
+    assert launches(fir.upfirdn2d_fir)["upfirdn2d_fir"] == n_fir
+    hands_p = net.generate_mean_hands(pose, plain=True)
+    err = max(float((hands[k] - hands_p[k]).abs().max()) for k in hands)
+    assert err <= ATOL_FIR_IMG, err
+
+    net.load_state_dict(fixture)
+    kw = dict(bg_color=(1.0, 1.0, 1.0), img_w=rf.IMG_W, img_h=rf.IMG_H)
+    reset_launches(fir.upfirdn2d_fir)
+    h_kern = net.render(hitems, hand_vals=hands, **kw)
+    assert launches(fir.upfirdn2d_fir)["upfirdn2d_fir"] == n_fir
+    h_plain = net.render(hitems, hand_vals=hands, plain=True, **kw)
+    print(compare_images(h_kern, h_plain, ATOL_FIR_IMG))
+    w = net.hand_weights(hitems)
+    print(f"blend weight > 1e-3 at {int((w > 1e-3).sum())} points, > 0.5 "
+          f"at {int((w > 0.5).sum())} of {net.n_points}")
+    del h_kern, h_plain
+
+    novel = dict(hitems, smpl_pos_map=net.get_pose_map(hitems))
+    n_hand = net.render(novel, hand_vals=hands, **kw)
+    n_bare = net.render(novel, **kw)
+    moved = (n_hand["posed_gaussians"]["positions"]
+             - n_bare["posed_gaussians"]["positions"]).norm(dim=1) > 1e-6
+    assert float((n_hand["mask_map"] > 0.5).float().mean()) > 0
+    assert int(moved.sum()) > 0
+    for k in ("rgb_map", "mask_map", "depth_map"):
+        assert torch.isfinite(n_hand[k]).all(), k

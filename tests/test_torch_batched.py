@@ -6,7 +6,14 @@ steps, and both scans against the host loop of their steps (exact).
 
 The JAX weights are carried across with ``params_from_jax`` and
 ``lpips_from_jax``; each item's random draws are made from the JAX batched
-step's own key splits (avatar_trainer.py:230-244) and handed to the port."""
+step's own key splits (avatar_trainer.py:230-244) and handed to the port.
+
+Marked ``gpu`` (skipped without a CUDA device), on the full-width
+fixture: the B = 2 batched step through the kernels against
+``plain=True`` with its FIR launches, the kernels' launches over B2_STEPS
+steps, and make_train_scan_batched over SCAN_STEPS steps against the host
+loop of the same steps, beside two planted faults the limit must
+catch."""
 
 import dataclasses
 
@@ -27,6 +34,9 @@ from animatablegaussians_torch.training import avatar_trainer as tat
 from animatablegaussians_torch.training import lpips as tlp
 from animatablegaussians_torch.utils.convert import (lpips_from_jax,
                                                       params_from_jax)
+from on_card import (assert_step_matches, card, finite, fir_count,  # noqa
+                     full, full_width, grad_snapshot, kernels, launches,
+                     reset_launches, train_kw)
 
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -253,3 +263,119 @@ def test_scan_equals_host_loop(tiny, batched):
         assert torch.equal(t_scan[k], t_loop[k]), k
     for n in p_scan:
         assert torch.equal(p_scan[n], p_loop[n]), n
+
+
+# ---------------------------------------------------------------------------
+# on the card, at full width
+# ---------------------------------------------------------------------------
+
+TRAIN_B, B2_STEPS, SCAN_STEPS = 2, 5, 3
+# scan against host loop on the card, per step's loss terms: the same steps
+# on the same batches and draws, but the blend's atomics and the events of
+# RTOL_GRAD make every run's update differ a little. On the H100 two host
+# loops read 4.5e-6 to 7.3e-5 apart, and the planted faults 1.7e-1 (a scan
+# that never updates) and 1.3e-1 (every step on the first batch); the limit
+# sits near the middle of the two on a log scale. The parameters are not
+# held to a limit: Adam moves an element by about lr whatever its
+# gradient, so an element whose gradient is within that noise of 0 moves
+# either way, and two host loops differ by up to ~4 lr
+SCAN_RTOL_LOSS = 1e-3
+
+
+def _b2(net, items, seed=0):
+    from animatablegaussians_torch.tools import render_fixture as rf
+    return rf.sequence({k: items[k] for k in rf.TRAIN_KEYS}, TRAIN_B,
+                       seed=seed)
+
+
+def _b2_draws(gen, net):
+    return [tat.make_draws(gen, net.n_points) for _ in range(TRAIN_B)]
+
+
+@pytest.mark.gpu
+def test_batched_step_kernels_match_plain_at_full_width(full, train_kw):
+    from animatablegaussians_torch.ops import fir
+    from animatablegaussians_torch.tools import render_fixture as rf
+    net, items = full
+    batch = _b2(net, items)
+    draws = _b2_draws(torch.Generator(device=items["extr"].device)
+                      .manual_seed(6), net)
+    res = []
+    for plain in (True, False):
+        state = tat.make_train_state(net, rf.LR_INIT, rf.ITER_NUM)
+        step = tat.make_train_step_batched(net, plain=plain, **train_kw)
+        reset_launches(fir.upfirdn2d_fir)
+        res.append((step.loss_and_grads(state, batch, draws),
+                    grad_snapshot(net)))
+        net.zero_grad(set_to_none=True)
+    assert launches(fir.upfirdn2d_fir)["upfirdn2d_fir"] == sum(
+        fir_count(net))
+    (t_p, g_p), (t_k, g_k) = res
+    assert_step_matches(net, (t_k, g_k), (t_p, g_p))
+
+
+@pytest.mark.gpu
+def test_batched_steps_and_scan_at_full_width(full, train_kw):
+    """B2_STEPS steps launch each kernel (the FIR kernel once per FIR of
+    the forward and once per FIR whose input carries a gradient, the
+    backward blend once a frame); then, from the weights they leave,
+    SCAN_STEPS steps, each on its own B = 2 batch (its own camera jitter)
+    and draws, by make_train_scan_batched and by the host loop; a second
+    host loop reads the run-to-run spread, and two planted faults (no
+    update; every step on the first batch) must fall outside the limit."""
+    from animatablegaussians_torch.tools import render_fixture as rf
+    net, items = full
+    step = tat.make_train_step_batched(net, **train_kw)
+    gen = torch.Generator(device=items["extr"].device).manual_seed(6)
+    state = tat.make_train_state(net, rf.LR_INIT, rf.ITER_NUM)
+    batch = _b2(net, items)
+    reset_launches(*kernels())
+    for _ in range(B2_STEPS):
+        state, terms = step(state, batch, _b2_draws(gen, net))
+        assert finite(terms), terms
+    n = launches(*kernels())
+    assert n["upfirdn2d_fir"] == B2_STEPS * sum(fir_count(net))
+    assert n["blend_backward"] == TRAIN_B * B2_STEPS
+    assert min(n.values()) > 0, n
+    del state
+
+    start = {n: p.detach().clone() for n, p in net.named_parameters()}
+    batches = [_b2(net, items, seed=i) for i in range(SCAN_STEPS)]
+    scan_batch = {k: torch.stack([b[k] for b in batches])
+                  for k in batches[0]}
+    scan_draws = [_b2_draws(gen, net) for _ in range(SCAN_STEPS)]
+
+    def run(variant):
+        with torch.no_grad():
+            for n, p in net.named_parameters():
+                p.copy_(start[n])
+        state = tat.make_train_state(net, rf.LR_INIT, rf.ITER_NUM)
+        if variant == "scan":
+            state, terms = tat.make_train_scan_batched(step)(
+                state, scan_batch, scan_draws)
+            assert state.iter_idx == SCAN_STEPS
+            return terms
+        seq_terms = []
+        for i, d in enumerate(scan_draws):
+            b = batches[0] if variant == "first batch" else batches[i]
+            if variant == "no update":
+                seq_terms.append(step.loss_and_grads(state, b, d))
+            else:
+                state, t = step(state, b, d)
+                seq_terms.append(t)
+        return {k: torch.stack([t[k] for t in seq_terms])
+                for k in seq_terms[0]}
+
+    ref = run("host loop")
+    gaps = {}
+    for variant in ("scan", "host loop again", "no update", "first batch"):
+        terms = run(variant)
+        gaps[variant] = max(float(((terms[k] - ref[k]).abs()
+                                   / ref[k].abs().clamp(min=1e-30)).max())
+                            for k in ref)
+    print(f"largest loss-term relative difference from the host loop: "
+          f"{gaps}")
+    assert gaps["scan"] <= SCAN_RTOL_LOSS
+    assert gaps["host loop again"] <= SCAN_RTOL_LOSS
+    assert gaps["no update"] > SCAN_RTOL_LOSS
+    assert gaps["first batch"] > SCAN_RTOL_LOSS

@@ -10,6 +10,10 @@ another order; the random models' vertices are N(0, 1) metres);
 ``batch_rodrigues`` within 1e-6. ``SMPLX`` is held bit for bit to a
 restatement of its forward as it stood before the families moved its
 joint extension to a module function.
+
+Marked ``gpu`` (skipped without a CUDA device): one forward of each family
+at the real archives' sizes (``capture_fixture.FAMILIES``), the card
+against the CPU at B = BODY_B.
 """
 
 import jax
@@ -25,6 +29,7 @@ from animatablegaussians_torch.models import smplx as tsmplx
 from animatablegaussians_torch.models.smplx.lbs import (
     blend_shapes, find_dynamic_lmk_idx_and_bcoords, lbs, vertices2landmarks)
 from animatablegaussians_torch.tools import capture_fixture as cf
+from on_card import card, rel_err  # noqa: F401
 
 RTOL, ATOL = 1e-5, 1e-5
 KEYS = ("vertices", "joints", "A", "full_pose")
@@ -231,7 +236,7 @@ def _smplx_forward_before(m, betas, global_orient, body_pose,
 
 @pytest.mark.parametrize("case", ["pca", "landmarks"])
 def test_smplx_unchanged_bit_for_bit(tmp_path, case):
-    from tests.test_torch_data import _write_landmark_smplx
+    from test_torch_data import _write_landmark_smplx
     path = str(tmp_path / "smplx.npz")
     if case == "landmarks":
         _write_landmark_smplx(path)
@@ -254,3 +259,41 @@ def test_smplx_unchanged_bit_for_bit(tmp_path, case):
     for k in want:
         assert torch.equal(got[k], want[k]), k
         assert torch.equal(got_f[k], want[k]), k
+
+
+# ---------------------------------------------------------------------------
+# on the card
+# ---------------------------------------------------------------------------
+
+# the families' batch, and the card against the CPU, each output's largest
+# error over its largest magnitude: float32 einsums and matmuls (TF32 off)
+# summed in another order
+BODY_B, BODY_RTOL = 64, 1e-5
+BODY_DIMS = dict(
+    smpl=dict(betas=10, global_orient=3, body_pose=69, transl=3),
+    smplh=dict(betas=16, global_orient=3, body_pose=63, left_hand_pose=6,
+               right_hand_pose=6, transl=3),
+    mano=dict(betas=10, global_orient=3, hand_pose=6, transl=3),
+    flame=dict(betas=10, global_orient=3, neck_pose=3, jaw_pose=3,
+               leye_pose=3, reye_pose=3, expression=10, transl=3))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fam", list(BODY_DIMS))
+def test_family_on_the_card_against_the_cpu(card, tmp_path, fam):
+    make = dict(smpl=lambda p, d: tsmplx.SMPL.from_npz(p, device=d),
+                smplh=lambda p, d: tsmplx.SMPLH.from_npz(
+                    p, num_betas=16, device=d),
+                mano=lambda p, d: tsmplx.MANO.from_npz(p, device=d),
+                flame=lambda p, d: tsmplx.FLAME.from_npz(
+                    p, device=d, use_face_contour=True))[fam]
+    path = cf.write_body_model(str(tmp_path / f"{fam}.npz"), fam)
+    rng = np.random.default_rng(22)
+    args = {k: torch.from_numpy((0.3 * rng.standard_normal(
+        (BODY_B, d))).astype(np.float32)) for k, d in BODY_DIMS[fam].items()}
+    with torch.no_grad():
+        got = make(path, card)(**{k: v.to(card) for k, v in args.items()})
+        want = make(path, "cpu")(**args)
+    for k in KEYS:
+        assert rel_err(got[k], want[k]) <= BODY_RTOL, k
+    assert torch.isfinite(got["vertices"]).all()

@@ -31,8 +31,8 @@ from animatablegaussians_torch.models.smplx import SMPLX, lbs
 from animatablegaussians_torch.ops import quat as tquat
 from animatablegaussians_torch.tools import capture_fixture as cf
 from animatablegaussians_torch.utils import exr
-from tests.test_datasets import write_synthetic_mano, write_synthetic_smplx
-from tests.test_smplx import make_synthetic_model
+from test_datasets import write_synthetic_mano, write_synthetic_smplx
+from test_smplx import make_synthetic_model
 
 RTOL, ATOL = 1e-5, 1e-6
 IMAGE_KEYS = ("color_img", "mask_img", "boundary_mask_img", "smpl_pos_map")

@@ -4,7 +4,15 @@ JAX package's importer, key checks), rotation and the resume precedence,
 the LPIPS weight resolution, and AvatarTrainer / main_avatar_torch end to
 end on a small synthetic capture (as tests/test_driver.py's
 test_avatar_trainer_end_to_end: 3 pretrain iterations, one epoch of 6
-steps, a mini-test snapshot, checkpoints, resume)."""
+steps, a mini-test snapshot, checkpoints, resume).
+
+Marked ``gpu`` (skipped without a CUDA device): ``main_avatar_torch -m
+train`` as a user runs it on a full-width capture (on_card.write_capture)
+with the bench's settings: the kernels' launches of the pretrain steps,
+the train steps and the mini-test, finite losses, every parameter group
+moved, a second trainer resumed from epoch_latest equal to the first bit
+for bit, and the CLI run again resuming to step 12 with one batch_*
+directory left."""
 
 import dataclasses
 import os
@@ -29,6 +37,9 @@ from animatablegaussians_torch.training.driver import AvatarTrainer
 from animatablegaussians_torch.utils.convert import params_from_jax
 
 import main_avatar_torch
+from on_card import (DRIVER_FRAMES, DRIVER_PRETRAIN, card,  # noqa: F401
+                     finite, fir_count, kernels, launches, param_groups,
+                     reset_launches, write_capture, write_config)
 
 MAP_H = 64
 
@@ -293,3 +304,55 @@ def test_avatar_trainer_end_to_end(capture, tmp_path, monkeypatch):
                         ("posed_gaussians", "ply")):
         assert sorted(os.listdir(tmp_path / "animation" / folder)) == [
             f"{i:08d}.{ext}" for i in range(2)], folder
+
+
+# ---------------------------------------------------------------------------
+# on the card, at full width
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+def test_training_entry_point_on_a_full_width_capture(card, tmp_path,
+                                                      monkeypatch):
+    """DRIVER_PRETRAIN pretrain iterations, one epoch of 2 x DRIVER_FRAMES
+    steps with a mini-test and a batch checkpoint at step 4."""
+    opt = write_capture(str(tmp_path))
+    cfg = write_config(opt, str(tmp_path / "avatar.yaml"))
+    argv, dev = ["-c", cfg, "-m", "train"], str(card)
+    ckpt_dir = opt["train"]["net_ckpt_dir"]
+    monkeypatch.setattr(AvatarTrainer, "PRETRAIN_ITERS", DRIVER_PRETRAIN)
+    reset_launches(*kernels())
+    trainer = main_avatar_torch.main(argv, num_epochs=1, device=dev)
+    n = launches(*kernels())
+    net, n_steps = trainer.avatar_net, trainer.iter_idx
+    n_eval = n_steps // opt["train"]["eval_interval"]
+    pre_fwd, pre_grad = fir_count(net, ("position_net", "other_net"))
+    n_fir, n_fir_grad = fir_count(net)
+    assert n_steps == 2 * DRIVER_FRAMES
+    assert n == {"expand_pairs": n_steps + n_eval,
+                 "blend_tiles": n_steps + n_eval, "blend_backward": n_steps,
+                 "upfirdn2d_fir": DRIVER_PRETRAIN * (pre_fwd + pre_grad)
+                 + n_steps * (n_fir + n_fir_grad) + n_eval * n_fir}
+    assert all(finite(t) for t in trainer.terms), trainer.terms
+    pre = torch.load(os.path.join(ckpt_dir, "pretrained", "net.pt"),
+                     map_location="cpu", weights_only=True)["avatar_net"]
+    moved = {g: max(float((p.detach().cpu() - pre[k]).abs().max())
+                    for k, p in named if p.numel()
+                    and not k.startswith("cano_gaussian.features"))
+             for g, named in param_groups(net).items()}
+    assert min(moved.values()) > 0, moved
+    assert os.path.exists(os.path.join(ckpt_dir, "eval", "training_4.jpg"))
+
+    # a second trainer resumed from epoch_latest equals the first
+    d, with_optm = ck.resolve_resume_dir(ckpt_dir)
+    assert d.endswith("epoch_latest") and with_optm
+    second = AvatarTrainer(opt, device=dev)
+    second.load_ckpt(d, load_optm=with_optm)
+    assert second.iter_idx == trainer.iter_idx
+    _state_equal(trainer.state, second.state)
+    del trainer, second, net
+
+    # the CLI again: it resumes from epoch_latest and trains on
+    trainer = main_avatar_torch.main(argv, num_epochs=1, device=dev)
+    assert trainer.iter_idx == 4 * DRIVER_FRAMES
+    assert sorted(x for x in os.listdir(ckpt_dir)
+                  if x.startswith("batch_")) == [f"batch_{4 * DRIVER_FRAMES}"]

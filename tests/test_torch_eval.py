@@ -15,16 +15,28 @@ eigendecompositions of two LAPACK drivers); a directory FID 1e-4 relative
 One JAX Inception trunk is built in this file, from a synthetic
 torchvision-layout state dict through ``from_torch`` (the JAX package's
 ``init_random`` draws its 94 weights eagerly, one compile each).
+
+Marked ``gpu`` (skipped without a CUDA device): a full-width capture
+(on_card.write_capture) rendered from each of its 2 cameras by
+``main_avatar_torch -m test`` with the position and other heads' outputs
+zeroed (1500x2048 JPEGs, each covering at least ANIM_COVER_MIN of its
+frame), then scored through the evaluation CLI's functions on the card
+(compare_methods at 512^2 crops, LPIPS with random VGG16 weights,
+compute_fid with a random Inception trunk: not valid metrics) with no
+kernel of the port launched: each PSNR against numpy's, the card against
+the CPU (PSNR, SSIM, LPIPS, the features, the Fréchet distance and the
+FID, beside a planted fault), and one Inception batch's kernels summed
+from a ``utils/profiling.trace`` against its CUDA-event time.
 """
 
 import os
+import shutil
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from threadpoolctl import threadpool_limits
 
 from animatablegaussians_tpu.eval import comparison as jcmp
 from animatablegaussians_tpu.eval import fid as jfid
@@ -35,6 +47,9 @@ from animatablegaussians_torch.eval import score as tscore
 from animatablegaussians_torch.training import lpips as tlp
 from animatablegaussians_torch.utils.convert import (inception_from_jax,
                                                      lpips_from_jax)
+from on_card import (ANIM_COVER_MIN, DRIVER_FRAMES, card,  # noqa: F401
+                     kernels, launches, render_checkpoint, reset_launches,
+                     write_capture, write_config)
 
 cv = pytest.importorskip("cv2")
 
@@ -105,6 +120,7 @@ def one_thread():
     at 2048 dimensions with a thread a core took 75-208 s instead of a
     few seconds: its many small parallel regions wait on threads the
     other processes hold."""
+    from threadpoolctl import threadpool_limits
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
@@ -354,3 +370,262 @@ def test_cli_runs_on_the_card_unless_told(tmp_path, monkeypatch, capsys):
     assert out["ours"].psnr == want["ours"].psnr
     assert out["ours"].lpips == want["ours"].lpips
     assert os.path.exists(tmp_path / "crops" / "gt" / "00000001.png")
+
+
+# ---------------------------------------------------------------------------
+# on the card, at full width
+# ---------------------------------------------------------------------------
+
+# the capture rendered from its own cameras (in calibration order,
+# tools/capture_fixture.write_capture's names) and scored at the reference
+# protocol's 512^2 crops; the Inception trunk's batch
+EVAL_CAMS, EVAL_PATCH, EVAL_BATCH = ("cam00", "cam01"), 512, 8
+# the card against the CPU on the same frames: PSNR and SSIM relative
+# (float64 on both devices, sums in another order); LPIPS absolute (float32
+# VGG16 convolutions of cuDNN and the CPU, TF32 off); the Inception
+# features relative to the largest feature (float32 through 94
+# convolutions); the Fréchet distance of the same float64 statistics
+# relative (two eigensolvers: cuSOLVER's and LAPACK's)
+EVAL_RTOL_F64, EVAL_ATOL_LPIPS = 1e-9, 1e-4
+EVAL_RTOL_FEATURES, EVAL_RTOL_FRECHET = 1e-4, 1e-6
+# the FID end to end, each device's features through its own statistics
+# and distance, relative. The two devices' float32 convolutions put the
+# features 1.0e-6 to 1.1e-6 apart (relative to the largest feature), and
+# the distance carries that at 1.7e-6 to 2.2e-6 (H100, three runs), so
+# 1e-6 cannot hold here; the limit is about 5 times the largest reading.
+# A planted fault, the crops resized without antialiasing (the trap of
+# fid.resize_299), must move the FID by more than EVAL_FAULT_MIN times it
+EVAL_RTOL_FID, EVAL_FAULT_MIN = 1e-5, 10
+# one Inception batch's kernels summed from a torch.profiler trace
+# (utils/profiling.trace_report) over the batch's CUDA-event time: the
+# kernels cannot take longer than the span that holds them (up to the two
+# clocks' noise), and the launch gaps between them are a small share
+EVAL_TRACE_SHARE = (0.5, 1.1)
+
+
+@pytest.fixture(scope="module")
+def scored(card, tmp_path_factory):
+    """The capture's frames rendered from each camera, then scored on the
+    card: the renders' kernel launches, the scores, the FID and the
+    scorer's launches."""
+    import main_avatar_torch
+    tmp = str(tmp_path_factory.mktemp("eval"))
+    opt = write_capture(tmp)
+    ckpt = render_checkpoint(opt, os.path.join(tmp, "render_ckpt"), card)
+    data = opt["train"]["data"]
+    reset_launches(*kernels())
+    renders = {}
+    for i, cam in enumerate(EVAL_CAMS):
+        test = dict(data=dict(data_dir=data["data_dir"],
+                              frame_range=[0, DRIVER_FRAMES],
+                              smpl_model_path=data["smpl_model_path"]),
+                    view_setting="camera", render_view_idx=i,
+                    img_scale=1.0, prev_ckpt=ckpt,
+                    output_dir=os.path.join(tmp, f"eval_{cam}"))
+        cfg = write_config(dict(opt, test=test),
+                           os.path.join(tmp, f"eval_{cam}.yaml"))
+        main_avatar_torch.main(["-c", cfg, "-m", "test"], device=str(card))
+        renders[cam] = os.path.join(test["output_dir"], "rgb_map")
+    render_launches = launches(*kernels())
+
+    def score(device, lp, crops=None):
+        """Per-frame [psnr, ssim, lpips] of every camera and frame."""
+        out = {}
+        for cam in EVAL_CAMS:
+            for f in range(DRIVER_FRAMES):
+                m = tcmp.compare_methods(
+                    {"ours": renders[cam]},
+                    os.path.join(data["data_dir"], cam),
+                    os.path.join(data["data_dir"], cam, "mask", "pha"), [f],
+                    patch_size=EVAL_PATCH, lpips_params=lp,
+                    crop_out_dir=crops and os.path.join(crops, cam),
+                    device=device)["ours"]
+                assert m.count == 1, (cam, f)
+                out[(cam, f)] = [m.psnr, m.ssim, m.lpips]
+        return out
+
+    lp_weights = tlp.init_random(0)
+    crops = os.path.join(tmp, "eval_crops")
+    reset_launches(*kernels())
+    card_scores = score(str(card), tlp.LPIPS(lp_weights, device=card),
+                        crops)
+    # the FID's directories: both cameras' crops
+    fid_dirs = {}
+    for sub in ("ours", "gt"):
+        fid_dirs[sub] = os.path.join(crops, "all", sub)
+        os.makedirs(fid_dirs[sub])
+        for cam in EVAL_CAMS:
+            for name in os.listdir(os.path.join(crops, cam, sub)):
+                shutil.copy(os.path.join(crops, cam, sub, name),
+                            os.path.join(fid_dirs[sub], f"{cam}_{name}"))
+    inception = tfid.InceptionV3Features.init_random(
+        torch.Generator().manual_seed(18), device=card)
+    fid_card = tfid.compute_fid(fid_dirs["ours"], fid_dirs["gt"], inception,
+                                batch=EVAL_BATCH)
+    return dict(tmp=tmp, data=data, renders=renders, crops=crops,
+                render_launches=render_launches,
+                score_launches=launches(*kernels()), score=score,
+                lp_weights=lp_weights, card_scores=card_scores,
+                fid_dirs=fid_dirs, inception=inception, fid_card=fid_card)
+
+
+@pytest.mark.gpu
+def test_renders_from_the_captures_cameras(scored):
+    import cv2
+
+    from animatablegaussians_torch.tools import capture_fixture as cf
+    n = len(EVAL_CAMS) * DRIVER_FRAMES
+    r = scored["render_launches"]
+    assert r["expand_pairs"] == r["blend_tiles"] == n
+    assert r["blend_backward"] == 0 and r["upfirdn2d_fir"] > 0
+    cover = []
+    for cam, d in scored["renders"].items():
+        for f in range(DRIVER_FRAMES):
+            img = cv2.imread(os.path.join(d, "%08d.jpg" % f))
+            assert img is not None, (cam, f)
+            assert img.shape == (cf.FULL["img_h"], cf.FULL["img_w"], 3)
+            # the share of pixels with alpha >= 1/255 (run_test's mask_map
+            # PNG holds floor(255 alpha))
+            cover.append(float((cv2.imread(os.path.join(
+                os.path.dirname(d), "mask_map", "%08d.png" % f),
+                cv2.IMREAD_UNCHANGED) >= 1).mean()))
+    print(f"pixels with alpha >= 1/255: {min(cover):.4f} to "
+          f"{max(cover):.4f} of a frame")
+    assert min(cover) >= ANIM_COVER_MIN, cover
+
+
+@pytest.mark.gpu
+def test_scores_on_the_card_are_the_frames_own(scored):
+    """No kernel of the port launches while scoring; each frame's PSNR
+    equals numpy's on the same pairing and differs against the other
+    camera's frame; the crops are 512^2."""
+    import cv2
+    assert not any(scored["score_launches"].values()), \
+        scored["score_launches"]
+    scores, data = scored["card_scores"], scored["data"]
+    assert all(np.isfinite(x) for v in scores.values() for x in v)
+    assert np.isfinite(scored["fid_card"])
+
+    def plain_psnr(render, cam, f):
+        """numpy's PSNR of a render against camera ``cam``'s frame ``f``,
+        whitened outside its matte, read as compare_methods reads them."""
+        def rd(path):
+            img = cv2.imread(path, cv2.IMREAD_UNCHANGED)
+            return (img / 255.0).astype(np.float32).astype(np.float64)
+        gt = rd(os.path.join(data["data_dir"], cam, "%08d.jpg" % f))
+        mask = rd(os.path.join(data["data_dir"], cam, "mask", "pha",
+                               "%08d.jpg" % f)) > 0.5
+        gt[~(mask[..., 0] if mask.ndim == 3 else mask)] = 1.0
+        return float(10.0 * np.log10(1.0 / np.mean((rd(render) - gt) ** 2)))
+
+    psnr_err, swap_gap = 0.0, np.inf
+    for (cam, f), v in scores.items():
+        other = EVAL_CAMS[1 - EVAL_CAMS.index(cam)]
+        render = os.path.join(scored["renders"][cam], "%08d.jpg" % f)
+        right = plain_psnr(render, cam, f)
+        psnr_err = max(psnr_err, abs(v[0] - right) / right)
+        swap_gap = min(swap_gap,
+                       abs(v[0] - plain_psnr(render, other, f)) / right)
+    assert psnr_err <= EVAL_RTOL_F64, psnr_err
+    assert swap_gap > 1e3 * EVAL_RTOL_F64, swap_gap
+    assert len({v[0] for v in scores.values()}) > 1
+    for cam in EVAL_CAMS:
+        for sub in ("ours", "gt"):
+            for f in range(DRIVER_FRAMES):
+                c = cv2.imread(os.path.join(scored["crops"], cam, sub,
+                                            "%08d.png" % f))
+                assert c is not None
+                assert c.shape == (EVAL_PATCH, EVAL_PATCH, 3), (cam, sub, f)
+
+
+@pytest.mark.gpu
+def test_scores_on_the_card_against_the_cpu(card, scored):
+    """The same frames, weights and features scored on the CPU, and a
+    planted fault: the renders' crops resized to 299 without antialiasing,
+    through the same trunk on the card."""
+    import torch.nn.functional as F
+    card_scores = scored["card_scores"]
+    cpu_scores = scored["score"]("cpu", tlp.LPIPS(scored["lp_weights"],
+                                                  device="cpu"))
+    errs = [max(abs(card_scores[k][i] - cpu_scores[k][i])
+                / (abs(cpu_scores[k][i]) if i < 2 else 1.0)
+                for k in card_scores) for i in range(3)]
+    inception, fid_card = scored["inception"], scored["fid_card"]
+    inception_cpu = tfid.InceptionV3Features.init_random(
+        torch.Generator().manual_seed(18), device="cpu")
+    feats, feat_err = {}, 0.0
+    for sub, d in scored["fid_dirs"].items():
+        a = tfid.features_of_images(inception, tfid.read_rgb_dir(d),
+                                    EVAL_BATCH)
+        b = tfid.features_of_images(inception_cpu, tfid.read_rgb_dir(d),
+                                    EVAL_BATCH)
+        feat_err = max(feat_err, float((a.cpu() - b).abs().max()
+                                       / b.abs().max()))
+        feats[sub] = (a, b)
+    stats = {sub: tfid.gaussian_stats(a, card) for sub, (a, _) in
+             feats.items()}
+    fd_card = tfid.frechet_distance(*stats["ours"], *stats["gt"],
+                                    device=card)
+    fd_cpu = tfid.frechet_distance(*stats["ours"], *stats["gt"],
+                                   device="cpu")
+    fd_cpu_feats = tfid.frechet_distance(
+        *tfid.gaussian_stats(feats["ours"][1], "cpu"),
+        *tfid.gaussian_stats(feats["gt"][1], "cpu"), device="cpu")
+    with torch.no_grad():
+        x = torch.from_numpy(np.stack(list(tfid.read_rgb_dir(
+            scored["fid_dirs"]["ours"])))).float().to(card)
+        x = F.interpolate(x.permute(0, 3, 1, 2), size=(299, 299),
+                          mode="bilinear", align_corners=False)
+        fault = inception.trunk(x * 2.0 - 1.0)
+    fd_fault = tfid.frechet_distance(*tfid.gaussian_stats(fault, card),
+                                     *stats["gt"], device=card)
+    fid_rel = abs(fd_cpu_feats - fid_card) / fid_card
+    fault_rel = abs(fd_fault - fid_card) / fid_card
+    print(f"PSNR, SSIM, LPIPS {errs}; features {feat_err:.2e}; Fréchet "
+          f"card {fd_card:.9f} CPU {fd_cpu:.9f}; FID card {fid_card:.9f} "
+          f"CPU {fd_cpu_feats:.9f} ({fid_rel:.2e}); fault {fault_rel:.2e}")
+    assert errs[0] <= EVAL_RTOL_F64 and errs[1] <= EVAL_RTOL_F64, errs
+    assert errs[2] <= EVAL_ATOL_LPIPS, errs
+    assert feat_err <= EVAL_RTOL_FEATURES, feat_err
+    assert abs(fd_card - fd_cpu) / abs(fd_cpu) <= EVAL_RTOL_FRECHET
+    assert abs(fd_card - fid_card) <= EVAL_RTOL_FRECHET * fid_card
+    assert fid_rel <= EVAL_RTOL_FID, fid_rel
+    assert fault_rel > EVAL_FAULT_MIN * EVAL_RTOL_FID, fault_rel
+
+
+@pytest.mark.gpu
+def test_trace_report_sums_an_inception_batch(card, scored):
+    """One Inception batch under ``utils/profiling.trace``: its kernels,
+    summed by ``trace_report``, come to EVAL_TRACE_SHARE of the batch's
+    CUDA-event time, with convolutions among them (cuDNN's implicit-GEMM,
+    Winograd and FFT kernels, by name)."""
+    import re
+
+    from animatablegaussians_torch.utils import profiling
+    inception = scored["inception"]
+    rng = np.random.default_rng(18)
+    batch = torch.from_numpy(rng.random((EVAL_BATCH, 512, 512, 3),
+                                        dtype=np.float32)).to(card)
+    for _ in range(2):                                  # warm-up
+        inception.features(batch)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    for _ in range(8):
+        inception.features(batch)
+    ev[1].record()
+    torch.cuda.synchronize()
+    batch_ms = ev[0].elapsed_time(ev[1]) / 8
+    d = os.path.join(scored["tmp"], "eval_trace")
+    with profiling.trace(d):
+        profiling.sync(inception.features(batch))
+    report = profiling.trace_report(d, top=10 ** 6)
+    assert not report.startswith("no "), report
+    rows = [ln.split(None, 4) for ln in report.splitlines()]
+    total = sum(float(r[0]) for r in rows)
+    conv = sum(float(r[0]) for r in rows if re.search(
+        r"conv|fprop|xmma|implicit_gemm|cudnn|winograd|fft", r[4], re.I))
+    print(f"trace_report {total:.3f} ms of {batch_ms:.3f} ms of CUDA "
+          f"events, convolutions {conv:.3f} ms")
+    assert EVAL_TRACE_SHARE[0] <= total / batch_ms <= EVAL_TRACE_SHARE[1]
+    assert conv > 0

@@ -8,6 +8,12 @@ and second derivatives 1e-5 relative and 1e-5 absolute (scatter sums in
 another order); the conv stacks and the U-Net 1e-4 of the output's largest
 magnitude (float32 convolutions of two frameworks, the JAX side at its
 highest precision: this CPU stack's default rounds through bfloat16).
+
+Marked ``gpu`` (skipped without a CUDA device): a tri-plane sample of the
+full-width fixture's 531,520 Gaussians (FEAT_SIZE^2 planes of FEAT_DIM
+channels), its backward and a gradient of a gradient through
+``grid_sample2d``, and UNet5 at nf UNET_NF on UNET_SIDE^2, the card against
+the CPU.
 """
 
 import jax
@@ -19,6 +25,7 @@ import torch
 from animatablegaussians_tpu.models import feature2d as jf
 from animatablegaussians_torch.models import feature2d as tf
 from animatablegaussians_torch.utils.convert import feature2d_state
+from on_card import card, full_width, rel_err  # noqa: F401
 
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -199,3 +206,59 @@ def test_unet5_matches_jax():
     err = np.abs(t(_nchw(x)).permute(0, 2, 3, 1).detach().numpy()
                  - np.asarray(want)).max() / np.abs(np.asarray(want)).max()
     assert err > 100 * REL_CONV
+
+
+# ---------------------------------------------------------------------------
+# on the card, at full width
+# ---------------------------------------------------------------------------
+
+# the tri-plane field: 32 channels a plane at 256^2; the card against the
+# CPU relative to each output's largest magnitude: the same float32
+# arithmetic a point, but the gradients to the planes are scatter sums
+# whose order the card's atomics set; UNet5's cuDNN and CPU convolutions
+FEAT_DIM, FEAT_SIZE, FEAT_RTOL = 32, 256, 1e-4
+UNET_NF, UNET_SIDE, UNET_RTOL = 64, 512, 1e-4
+
+
+@pytest.mark.gpu
+def test_triplane_sample_on_the_card_against_the_cpu(full_width):
+    """The fixture's Gaussians normalized into [-1, 1]: forward, the first
+    derivatives and the gradient of the squared point gradient, each in
+    (planes, points)."""
+    from animatablegaussians_torch.utils.geometry import normalize_vert_bbox
+    net = full_width[0]
+    dev = net.cano_gaussian.xyz.device
+    xyz = normalize_vert_bbox(net.cano_gaussian.xyz.detach())[None]
+    fmap = tf.TriPlaneFeature(FEAT_DIM, FEAT_SIZE, device=dev)(1)
+    gen = torch.Generator(device=dev).manual_seed(22)
+    cot = torch.randn((1, xyz.shape[1], 3 * FEAT_DIM), generator=gen,
+                      device=dev)
+
+    def passes(fmap, pts, c):
+        fmap = fmap.detach().requires_grad_(True)
+        pts = pts.detach().requires_grad_(True)
+        out = tf.triplane_sample(pts, fmap)
+        g_f, g_p = torch.autograd.grad((out * c).sum(), [fmap, pts],
+                                       create_graph=True)
+        h_f, h_p = torch.autograd.grad((g_p ** 2).sum(), [fmap, pts])
+        return dict(out=out, g_fmap=g_f, g_pts=g_p, gg_fmap=h_f, gg_pts=h_p)
+
+    got = passes(fmap, xyz, cot)
+    want = passes(fmap.cpu(), xyz.cpu(), cot.cpu())
+    errs = {k: rel_err(got[k], want[k]) for k in got}
+    assert max(errs.values()) <= FEAT_RTOL, errs
+
+
+@pytest.mark.gpu
+@torch.no_grad()
+def test_unet5_on_the_card_against_the_cpu(card):
+    gen = torch.Generator(device=card).manual_seed(22)
+    unet = tf.UNet5(3, 3, UNET_NF, device=card)
+    x = torch.randn((1, 3, UNET_SIDE, UNET_SIDE), generator=gen,
+                    device=card)
+    y = unet(x)
+    unet_cpu = tf.UNet5(3, 3, UNET_NF, device="cpu")
+    unet_cpu.load_state_dict(unet.state_dict())
+    assert torch.isfinite(y).all()
+    err = rel_err(y, unet_cpu(x.cpu()))
+    assert err <= UNET_RTOL, err

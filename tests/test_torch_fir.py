@@ -5,8 +5,15 @@ Pallas FIR kernel on the CPU, and the routing of ops/upfirdn2d.py.
 ``csrc/fir.cu``; here it is held against ``fir_pallas.upfirdn2d_pallas``
 in interpret mode (as ``tests/test_fir_pallas.py`` runs it) over the same
 cases and shapes, and ``upfirdn2d_fir``'s autograd gradient against
-``jax.grad`` through the Pallas custom VJP. The kernel itself runs only on
-the card (``chip_smoke.py``)."""
+``jax.grad`` through the Pallas custom VJP. The kernel's tiling is
+repeated here in numpy against the plain version.
+
+Marked ``gpu`` (skipped without a CUDA device), on the full-width
+fixture: the kernel against its plain version at every distinct FIR of
+one train forward (99 launches, 81 on a tensor that carries a gradient),
+forward bit for bit and first derivative within RTOL_FIR; render and
+render_sequence with the FIRs through the kernel against through one
+PyTorch call each, within ATOL_FIR_IMG."""
 
 import jax
 import jax.numpy as jnp
@@ -21,6 +28,9 @@ from animatablegaussians_torch.models import styleunet as tsu
 from animatablegaussians_torch.ops import fir as tfir
 from animatablegaussians_torch.ops import upfirdn2d as tuf
 from animatablegaussians_torch.utils.convert import dual_styleunet_state
+from on_card import (ATOL_FIR_IMG, card, check_fir_calls,  # noqa: F401
+                     compare_images, fir_calls, fir_count,
+                     fir_through_library, full, full_width, heads_eager)
 
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -432,3 +442,39 @@ def test_backward_launches_transposed_call(monkeypatch, case):
     assert seen == [(kv, kh, up, down, pad),
                     (kv[::-1], kh[::-1], down, up, gpad),
                     (kv, kh, up, down, pad)]
+
+
+# ---------------------------------------------------------------------------
+# on the card, at full width
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+def test_kernel_matches_plain_at_every_fir_of_a_train_forward(full, card):
+    from animatablegaussians_torch.tools import render_fixture as rf
+    net, items = full
+    with fir_calls() as calls:
+        net.render(items, training=True, bg_color=(1.0, 1.0, 1.0),
+                   img_w=rf.IMG_W, img_h=rf.IMG_H)
+    n_grad = sum(int(grad) for _, _, grad in calls)
+    assert (len(calls), n_grad) == fir_count(net)
+    check_fir_calls(calls, card)
+
+
+@pytest.mark.gpu
+@torch.no_grad()
+def test_render_fir_kernel_matches_the_library_call(full):
+    """render and a 4-frame render_sequence with the FIRs through the
+    kernel against the same calls with them through the library call
+    (swapped in here, never in the port), the heads eager both ways."""
+    from animatablegaussians_torch.tools import render_fixture as rf
+    net, items = full
+    items = {k: items[k] for k in rf.RENDER_KEYS}
+    seq = rf.sequence(items, 4)
+    kw = dict(bg_color=(1.0, 1.0, 1.0), img_w=rf.IMG_W, img_h=rf.IMG_H)
+    outs = {}
+    for route in (heads_eager, fir_through_library):
+        with route():
+            outs[route] = (net.render(items, **kw),
+                           net.render_sequence(seq, **kw))
+    for a, b in zip(outs[heads_eager], outs[fir_through_library]):
+        print(compare_images(a, b, ATOL_FIR_IMG))

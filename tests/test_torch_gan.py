@@ -1,6 +1,15 @@
 """The port's StyleGAN losses and R1 penalty against the JAX package on the
 CPU, and the second derivative through the FIR wrapper (``ops/fir.py``:
-``_FIR`` and ``_FIRGrad``) against autograd through its plain version."""
+``_FIR`` and ``_FIRGrad``) against autograd through its plain version.
+
+Marked ``gpu`` (skipped without a CUDA device), the StyleGAN2 family at the
+avatar heads' widths (``GAN_KW``): each generator's forward through the
+FIR kernel against its plain version, bit for bit under cuDNN's
+deterministic algorithms; StyleGenerator(1024, n_mlp 8) forward and
+backward; one GAN step at B = 2 with its R1 penalty (the FIR's second
+derivative), step 0 through the kernel against the plain path, the FIR
+launches of a step in each direction, and the kernel against its plain
+version at each distinct FIR call of the step in each direction it ran."""
 
 import jax
 import jax.numpy as jnp
@@ -19,6 +28,9 @@ from animatablegaussians_torch.ops import upfirdn2d as tuf
 from animatablegaussians_torch.training import losses as tl
 from animatablegaussians_torch.utils import convert
 from test_torch_stylegan import init_params
+from on_card import (assert_step_matches, by_direction, card,  # noqa
+                     check_fir_calls, cudnn_deterministic, fir_calls,
+                     grad_snapshot, launches, reset_launches)
 
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -62,7 +74,7 @@ def test_r1_penalty_and_its_gradient_match_jax(disc):
     penalty; the JAX gradient tree is carried into the port's layout by
     the same (linear) converter as the weights. The port's FIRs run
     through ``_launch`` in all three directions, as
-    ``chip_smoke.fir_calls`` records them: the forward, the first
+    ``on_card.fir_calls`` records them: the forward, the first
     derivative (the transposed call, ``_launch_grad``) and the second
     (``_launch_grad2``), each derivative of a forward call it recorded.
     Gradients of a gradient through ~20 float32 layers: rtol 1e-4 of each
@@ -78,10 +90,8 @@ def test_r1_penalty_and_its_gradient_match_jax(disc):
     want_grad = convert.discriminator_state(
         jax.tree_util.tree_map(np.asarray, want_grad))
 
-    import chip_smoke
-
     tnet.zero_grad()
-    with chip_smoke.fir_calls() as calls:
+    with fir_calls() as calls:
         got = tl.d_r1_loss(tnet, torch.as_tensor(real))
         got.backward()
     np.testing.assert_allclose(float(got.detach()), float(want), rtol=1e-4)
@@ -186,3 +196,173 @@ def test_wavelet_downsample_plain_switch(monkeypatch):
                        want.permute(0, 2, 3, 1))
     with pytest.raises(TypeError):
         tuf._wavelet_downsample(x)
+
+
+# ---------------------------------------------------------------------------
+# on the card, at the avatar heads' widths
+# ---------------------------------------------------------------------------
+
+# the StyleGAN2 family at the avatar heads' widths (models/avatar.py:
+# 129-135): 512^2 condition maps in, 1024^2 out
+GAN_KW = dict(inp_size=512, inp_ch=3, out_ch=3, out_size=1024,
+              style_dim=512, n_mlp=2, channel_max=512)
+# the GAN step's batch, the steps before the recorded one and those
+# counted after it, the R1 weight (StyleGAN2's gamma, as r1 / 2 * gamma)
+# and Adam's settings (StyleGAN2's)
+GAN_B, GAN_WARMUP, GAN_COUNTED = 2, 2, 3
+GAN_R1_GAMMA, GAN_LR, GAN_BETAS = 10.0, 2e-3, (0.0, 0.99)
+# the host's draw of the default inject_index, seeded alike before each
+# route's forward
+GAN_INJECT_SEED = 19
+
+
+def _build(cls, seed, dev, **kw):
+    net = cls(generator=torch.Generator().manual_seed(seed), device=dev,
+              **kw)
+    with torch.no_grad():            # the noise weights start at zero
+        for name, p in net.named_parameters():
+            if name.endswith("noise.weight"):
+                p.fill_(0.1)
+    return net
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed,label", [(100, "base"), (101, "add_dwt"),
+                                        (102, "wo_dwt"), (103, "SWGANUnet")])
+def test_generator_through_the_kernel_matches_plain(card, seed, label):
+    """A B = 1 forward with two styles mixed at the default inject_index
+    and fixed noise. A generator's forward through the FIR kernel against
+    through its plain version is held bit for bit under cuDNN's
+    deterministic algorithms: every FIR launch of it equals its plain
+    version bit for bit, and deterministic cuDNN sums equal inputs alike
+    (under the default algorithms the same route run twice already
+    differs by 7.2e-7 to 1.42e-6 of the output's largest |value| on the
+    H100). The plain route launches no kernel."""
+    import random
+
+    from animatablegaussians_torch.models.styleunet_v2 import (
+        DualStyleUNetV2, SWGANUnet)
+    gen = torch.Generator(device=card).manual_seed(19)
+    net = (_build(SWGANUnet, seed, card, **GAN_KW) if label == "SWGANUnet"
+           else _build(DualStyleUNetV2, seed, card, mode=label, **GAN_KW))
+    cond = torch.randn((1, GAN_KW["inp_size"], GAN_KW["inp_size"], 3),
+                       generator=gen, device=card)
+    styles = [torch.randn((1, GAN_KW["style_dim"]), generator=gen,
+                          device=card) for _ in range(2)]
+    noise = net.make_noise(gen)
+    outs = {}
+    with cudnn_deterministic(), torch.no_grad():
+        for plain in (False, True):
+            reset_launches(tfir.upfirdn2d_fir)
+            random.seed(GAN_INJECT_SEED)
+            outs[plain] = net(styles, cond, noise=noise, plain=plain)[0]
+            outs[plain, "launches"] = launches(
+                tfir.upfirdn2d_fir)["upfirdn2d_fir"]
+    out = outs[False]
+    assert tuple(out.shape) == (1, GAN_KW["out_size"], GAN_KW["out_size"],
+                                GAN_KW["out_ch"] * len(net.BRANCHES))
+    assert bool(torch.isfinite(out).all()) and float(out.abs().max()) > 0
+    assert outs[False, "launches"] > 0 and outs[True, "launches"] == 0
+    assert torch.equal(out, outs[True])
+
+
+@pytest.mark.gpu
+def test_style_generator_forward_and_backward(card):
+    from animatablegaussians_torch.models.stylegan import StyleGenerator
+    gen = torch.Generator(device=card).manual_seed(19)
+    sg = _build(StyleGenerator, 110, card, size=GAN_KW["out_size"],
+                style_dim=GAN_KW["style_dim"], n_mlp=8, channel_multiplier=2)
+    z = [torch.randn((GAN_B, GAN_KW["style_dim"]), generator=gen,
+                     device=card)]
+    img = sg(z, noise=sg.make_noise(gen))[0]
+    img.square().mean().backward()
+    assert tuple(img.shape) == (GAN_B, GAN_KW["out_size"],
+                                GAN_KW["out_size"], 3)
+    assert bool(torch.isfinite(img).all())
+    assert all(bool(torch.isfinite(p.grad).all())
+               for p in sg.parameters() if p.grad is not None)
+
+
+@pytest.mark.gpu
+def test_gan_step_through_the_kernel(card):
+    """G the base DualStyleUNetV2, D the Discriminator(1024, 6 channels) on
+    G's [front | back] output and seeded real maps; the D half's logistic
+    loss and R1 penalty (a gradient of a gradient: the FIR's second
+    derivative through ops/fir.py::_FIRGrad), Adam; the G half's
+    non-saturating loss, Adam. Step 0's losses and gradients per group
+    through the kernel against the plain path; each step's losses finite;
+    a step's FIR launches in every direction, as many each step; each
+    distinct FIR call of the step in each direction it ran against the
+    plain version (forward bit for bit, derivatives within RTOL_FIR)."""
+    from animatablegaussians_torch.models.styleunet_v2 import \
+        DualStyleUNetV2
+    gen = torch.Generator(device=card).manual_seed(19)
+    G = _build(DualStyleUNetV2, 100, card, mode="base", **GAN_KW)
+    D = _build(tdisc.Discriminator, 120, card, size=GAN_KW["out_size"],
+               img_channel=2 * GAN_KW["out_ch"],
+               channel_max=GAN_KW["channel_max"])
+    side = GAN_KW["inp_size"]
+    cond = torch.randn((GAN_B, side, side, 3), generator=gen, device=card)
+    z = [torch.randn((GAN_B, GAN_KW["style_dim"]), generator=gen,
+                     device=card)]
+    real = torch.randn((GAN_B, GAN_KW["out_size"], GAN_KW["out_size"],
+                        2 * GAN_KW["out_ch"]), generator=gen, device=card)
+    noise = G.make_noise(gen)
+
+    def d_half(plain):
+        D.requires_grad_(True)
+        D.zero_grad(set_to_none=True)
+        with torch.no_grad():
+            fake = G(z, cond, noise=noise, plain=plain)[0]
+        d_loss = tl.d_logistic_loss(D(real, plain=plain),
+                                    D(fake, plain=plain))
+        r1 = tl.d_r1_loss(lambda x: D(x, plain=plain), real)
+        (d_loss + GAN_R1_GAMMA / 2 * r1).backward()
+        return {"d_logistic": d_loss.detach(), "r1": r1.detach()}
+
+    def g_half(plain):
+        D.requires_grad_(False)
+        G.zero_grad(set_to_none=True)
+        fake = G(z, cond, noise=noise, plain=plain)[0]
+        g_loss = tl.g_nonsaturating_loss(D(fake, plain=plain))
+        g_loss.backward()
+        return {"g_nonsaturating": g_loss.detach()}
+
+    def halves(plain):
+        terms = d_half(plain)
+        g_d = grad_snapshot(D)
+        terms.update(g_half(plain))
+        return terms, g_d, grad_snapshot(G)
+
+    t_k, gd_k, gg_k = halves(False)
+    t_p, gd_p, gg_p = halves(True)
+    assert_step_matches(G, (t_k, gg_k), (t_p, gg_p))
+    assert_step_matches(D, (t_k, gd_k), (t_p, gd_p))
+    assert all(np.isfinite(float(v)) for v in t_k.values())
+    del gd_k, gg_k, gd_p, gg_p
+
+    g_opt = torch.optim.Adam(G.parameters(), lr=GAN_LR, betas=GAN_BETAS)
+    d_opt = torch.optim.Adam(D.parameters(), lr=GAN_LR, betas=GAN_BETAS)
+
+    def step():
+        terms = d_half(False)
+        d_opt.step()
+        terms.update(g_half(False))
+        g_opt.step()
+        assert all(np.isfinite(float(v)) for v in terms.values()), terms
+
+    for _ in range(GAN_WARMUP):
+        step()
+    with fir_calls() as calls:
+        step()
+    reset_launches(tfir.upfirdn2d_fir)
+    for _ in range(GAN_COUNTED):
+        step()
+    by_dir = by_direction(calls)
+    print(f"FIR launches of a GAN step, forward / first / second "
+          f"derivative: {by_dir}")
+    assert min(by_dir.values()) > 0
+    assert launches(tfir.upfirdn2d_fir)["upfirdn2d_fir"] == \
+        GAN_COUNTED * len(calls)
+    del G, D, g_opt, d_opt
+    check_fir_calls(calls, card, step=True)

@@ -20,7 +20,7 @@ from animatablegaussians_torch.ops import knn as tknn
 from animatablegaussians_torch.ops import quat as tquat
 from animatablegaussians_torch.ops import sh as tsh
 from animatablegaussians_torch.ops.rasterize import api as tapi
-from tests.test_torch_rasterize import H, W, make_scene
+from test_torch_rasterize import H, W, make_scene
 
 # a camera that turns and moves, so that the camera centre -R^T t is not 0
 EXTR = np.array([[0.9950042, 0.0, 0.0998334, 0.1],

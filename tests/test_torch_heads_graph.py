@@ -28,6 +28,7 @@ from torch.profiler import ProfilerActivity, profile
 from animatablegaussians_torch.models import heads_graph as HG
 from animatablegaussians_torch.utils import profiling as P
 from animatablegaussians_torch.utils import synthetic
+from on_card import card  # noqa: F401
 
 GRAPH_COUNTERS = ("heads.graph.captures", "heads.graph.replays",
                   "heads.graph.eager")
@@ -204,7 +205,7 @@ def _set_cudnn_flags(flags):
 
 
 @pytest.fixture(scope="module")
-def card():
+def avatar(card):
     """The one-frame cell's avatar on the card: 1024^2 maps and image, the
     full widths, TF32 off as the configurations run; with four poses.
     cuDNN runs its deterministic algorithms here: with its default ones
@@ -212,8 +213,6 @@ def card():
     convolutions' data-gradient engine adds in no fixed order), so
     neither is the graph, and only the tests below that say so run with
     the default ones."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
     flags = _cudnn_flags()
     _set_cudnn_flags((False, False, True))
     torch.manual_seed(0)
@@ -259,8 +258,8 @@ KEYS = ("rgb_map", "mask_map", "depth_map", "offset", "pos_map",
 
 
 @pytest.mark.gpu
-def test_render_replay_matches_eager_bitwise(card):
-    net, poses = card
+def test_render_replay_matches_eager_bitwise(avatar):
+    net, poses = avatar
     _fresh_graphs(net)
     first = _render(net, poses[0])                  # captures
     replay = _render(net, poses[0])                 # replays
@@ -288,8 +287,8 @@ DEFAULT_CUDNN_RTOL = 1e-5
 
 
 @pytest.mark.gpu
-def test_default_cudnn_replay_within_the_eager_spread(card):
-    net, poses = card
+def test_default_cudnn_replay_within_the_eager_spread(avatar):
+    net, poses = avatar
     _fresh_graphs(net)
     flags = _cudnn_flags()
     _set_cudnn_flags((False, False, False))
@@ -314,8 +313,8 @@ def test_default_cudnn_replay_within_the_eager_spread(card):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("frames", [8, 3])
-def test_render_sequence_replay_matches_eager_bitwise(card, frames):
-    net, poses = card
+def test_render_sequence_replay_matches_eager_bitwise(avatar, frames):
+    net, poses = avatar
     _fresh_graphs(net)
     seq = {k: torch.stack([poses[f % len(poses)][k] for f in range(frames)])
            for k in poses[0]}
@@ -332,8 +331,8 @@ def test_render_sequence_replay_matches_eager_bitwise(card, frames):
 
 
 @pytest.mark.gpu
-def test_weights_parameters_and_hooks_after_a_capture(card):
-    net, poses = card
+def test_weights_parameters_and_hooks_after_a_capture(avatar):
+    net, poses = avatar
     _fresh_graphs(net)
     it = poses[2]
     before = _render(net, it)["rgb_map"]
@@ -377,8 +376,8 @@ def test_weights_parameters_and_hooks_after_a_capture(card):
 
 
 @pytest.mark.gpu
-def test_a_render_keeps_its_outputs_across_the_next(card):
-    net, poses = card
+def test_a_render_keeps_its_outputs_across_the_next(avatar):
+    net, poses = avatar
     _fresh_graphs(net)
     _render(net, poses[3])
     a = _render(net, poses[0])                      # a replay
@@ -390,8 +389,8 @@ def test_a_render_keeps_its_outputs_across_the_next(card):
 
 
 @pytest.mark.gpu
-def test_fir_launches_a_render_with_and_without_the_graph(card):
-    net, poses = card
+def test_fir_launches_a_render_with_and_without_the_graph(avatar):
+    net, poses = avatar
     _fresh_graphs(net)
     counts = []
     for mode in ("capture", "replay", "replay", "eager"):
@@ -406,13 +405,13 @@ def test_fir_launches_a_render_with_and_without_the_graph(card):
 
 
 @pytest.mark.gpu
-def test_replayed_kernels_go_to_heads_by_the_graph_launch(card, tmp_path):
+def test_replayed_kernels_go_to_heads_by_the_graph_launch(avatar, tmp_path):
     """A traced replay with cuDNN's default algorithms: every kernel the
     ``cudaGraphLaunch`` of the heads started carries its correlation id,
     the launch lies inside the ``heads`` span (``graphed_frames`` 1) on
     the trace's clock, and the replay runs as many kernels as the eager
     heads launch, beside the kernel that copies the pose maps in."""
-    net, poses = card
+    net, poses = avatar
     _fresh_graphs(net)
     flags = _cudnn_flags()
     _set_cudnn_flags((False, False, False))         # as the cells run

@@ -11,12 +11,21 @@ with cv2 and the same EXR codec) and their items bit for bit; the timed
 loop's loss terms finite (the loop itself is checked for its step count,
 its waits and its readings; its numbers are the train step's, which
 ``tests/test_torch_train.py`` holds against JAX).
+
+Marked ``gpu`` (skipped without a CUDA device): ``tools/bench_loader``'s
+loop on LOADER_FRAMES frames at 1500x2048, at B = 1 and B = 2 with
+LOADER_THREADS decode threads (the first batch on the card equal to
+``DiskDataset``'s read bit for bit, the train step's kernel launches a
+step, finite losses, over steps that cross an epoch's end), and DECODE_FILES JPEGs at 1500x2048 through
+``decode_jpeg_batch`` at 1 and LOADER_THREADS threads against
+``decode_jpeg``, bit for bit, with that machine's codec.
 """
 
 import os
 
 import numpy as np
 import pytest
+import torch
 
 from animatablegaussians_tpu.data import native_io as jnio
 from animatablegaussians_tpu.tools import bench_loader as jbl
@@ -27,6 +36,8 @@ from animatablegaussians_torch.data.loader import PrefetchLoader
 from animatablegaussians_torch.tools import bench_loader as tbl
 from animatablegaussians_torch.utils import exr as texr
 from animatablegaussians_torch.utils import synthetic as tsyn
+from on_card import (card, fir_count, full_width, kernels,  # noqa: F401
+                     launches, reset_launches, train_kw)
 
 cv = pytest.importorskip("cv2")
 
@@ -218,3 +229,79 @@ def test_timed_loop_tiny(datasets, batch):
         assert all(np.isfinite(v) for v in terms.values()), terms
     with pytest.raises(ValueError):
         tbl.timed_loop(run, loader, n_steps=1, warm=0)
+
+
+# ---------------------------------------------------------------------------
+# on the card, at full width
+# ---------------------------------------------------------------------------
+
+# the loader-fed train path on a dataset of LOADER_FRAMES frames at
+# 1500x2048 (the JAX tool's default is 24; 8 give B = 2 four batches an
+# epoch), LOADER_THREADS decode threads, LOADER_WARMUP + LOADER_STEPS steps:
+# 10 cross the end of an epoch once at B = 1 and twice at B = 2, and each
+# crossing reshuffles, restarts the decode threads and prefetches anew
+LOADER_FRAMES, LOADER_THREADS, LOADER_WARMUP, LOADER_STEPS = 8, 8, 1, 9
+# JPEGs of the batch decode
+DECODE_FILES = 16
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 2])
+def test_loader_fed_steps_on_the_card(full_width, train_kw, tmp_path, b):
+    from animatablegaussians_torch.tools import render_fixture as rf
+    net, _, fixture = full_width
+    net.load_state_dict(fixture)
+    dev = next(net.parameters()).device
+    root = str(tmp_path / "ds")
+    tbl.build_dataset(root, LOADER_FRAMES, rf.IMG_W, rf.IMG_H, rf.MAP_H)
+    ds = tbl.DiskDataset(root, LOADER_FRAMES)
+    run = tbl.make_run(net, 0 if b == 1 else b, dev,
+                       lpips=train_kw["lpips"], img_w=rf.IMG_W,
+                       img_h=rf.IMG_H)
+    loader = PrefetchLoader(ds, batch_size=b, shuffle=True,
+                            num_threads=LOADER_THREADS, prefetch=2,
+                            device=dev)
+    first_idx = loader.index_batches(1)[0]
+    kept = []
+
+    def run_keep(batch):
+        if not kept:                # the first batch, as it arrived
+            kept.append({k: v.clone() for k, v in batch.items()})
+        return run(batch)
+
+    reset_launches(*kernels())
+    res = tbl.timed_loop(run_keep, loader, LOADER_STEPS, warm=LOADER_WARMUP)
+    n = LOADER_WARMUP + LOADER_STEPS
+    assert n > len(loader) and loader._epoch == -(-n // len(loader))
+    assert launches(*kernels()) == dict(
+        expand_pairs=b * n, blend_tiles=b * n, blend_backward=b * n,
+        upfirdn2d_fir=n * sum(fir_count(net)))
+    reads = [ds[int(i)] for i in first_idx]
+    for k, v in kept[0].items():
+        assert v.device == dev
+        assert torch.equal(v.cpu(), torch.from_numpy(np.stack(
+            [r[k] for r in reads]))), k
+    assert all(np.isfinite(list(t.values())).all() for t in res["terms"])
+
+
+@pytest.mark.gpu
+def test_batch_decode_at_full_size(card, tmp_path):
+    """``decode_jpeg_batch`` at 1 and LOADER_THREADS threads against
+    ``decode_jpeg`` one file at a time, on colour JPEGs of 1500x2048 at
+    quality 90 with bench_loader's photographic noise (a cubic upsampling
+    of N(0, 1) at 1/8 size)."""
+    from animatablegaussians_torch.tools import render_fixture as rf
+    w, h = rf.IMG_W, rf.IMG_H
+    rng = np.random.default_rng(22)
+    paths = []
+    for i in range(DECODE_FILES):
+        tex = cv.resize(rng.standard_normal((h // 8, w // 8, 3)), (w, h),
+                        interpolation=cv.INTER_CUBIC)
+        paths.append(str(tmp_path / f"decode_{i:02d}.jpg"))
+        cv.imwrite(paths[-1], (np.clip(0.5 + 0.25 * tex, 0, 1) * 255).astype(
+            np.uint8), [cv.IMWRITE_JPEG_QUALITY, 90])
+    one = np.stack([native_io.decode_jpeg(p) for p in paths])
+    assert one.shape == (DECODE_FILES, h, w, 3)
+    for n in (1, LOADER_THREADS):
+        assert np.array_equal(native_io.decode_jpeg_batch(paths, n_threads=n),
+                              one), n

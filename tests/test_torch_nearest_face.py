@@ -30,6 +30,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from animatablegaussians_torch.ops import geometry3d as g3d
 from animatablegaussians_torch.utils import profiling as P
+from on_card import card  # noqa: F401
 
 # csrc/nearest_face.cu's points a block and faces a tile, read from its
 # source
@@ -184,13 +185,6 @@ def test_kernel_ranges_pick_argmin_first_index(n, n_faces):
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
-
-@pytest.fixture(scope="module")
-def card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    return torch.device("cuda:0")
-
 
 def _check_on_card(dev, p, v, f):
     p, v, f = p.to(dev), v.to(dev), f.to(dev)

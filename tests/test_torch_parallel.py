@@ -10,7 +10,16 @@ path and a test module's subclass; the loader's rank blocks.
 
 Each rank is a ``python -c`` subprocess with one torch thread, a
 ``file://`` rendezvous under ``tmp_path`` and a timeout of its own; the
-ranks import nothing of JAX."""
+ranks import nothing of JAX.
+
+Marked ``gpu`` (skipped without a CUDA device): the data-parallel step on
+a one-rank NCCL group at full width (the reduction leaves the rank's
+gradients bit for bit; against make_train_step on the same item and
+draws, the losses bit for bit and the gradients within RTOL_DP_GRAD),
+and ``main_avatar_torch -m train`` under torchrun's variables for a world
+of one on a full-width capture (an NCCL group, the rank on cuda:0,
+use_dp off, one epoch, epoch_latest's net.pt loading strictly into a
+fresh AvatarNet, the group torn down)."""
 
 import dataclasses
 import os
@@ -40,6 +49,10 @@ from animatablegaussians_torch.utils.convert import params_from_jax
 
 import main_avatar_torch
 from test_torch_remat import tiny_params
+from on_card import (DRIVER_FRAMES, DRIVER_PRETRAIN, card,  # noqa: F401
+                     cudnn_deterministic, finite, full, full_width,
+                     grad_errors, grad_snapshot, train_kw, write_capture,
+                     write_config)
 
 MAP_H, IMG, LR, ITER_NUM = 64, 64, 5e-4, 100
 STEP_KW = dict(loss_weight=dict(l1=1.0, offset=0.005), img_w=IMG, img_h=IMG)
@@ -453,3 +466,109 @@ def test_training_cli_defaults_to_the_card(monkeypatch):
             monkeypatch.setenv(k, v)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main_avatar_torch.main(["-c", "unused.yaml", "-m", "train"])
+
+
+# ---------------------------------------------------------------------------
+# on the card, at full width
+# ---------------------------------------------------------------------------
+
+# the data-parallel step on a one-rank group against the single step
+# (deterministic cuDNN): the losses bit for bit; the gradients by the
+# backward blend's atomics, which sum in a run-dependent order
+RTOL_DP_GRAD = 1e-4
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+@pytest.mark.gpu
+def test_dp_step_on_a_one_rank_group_at_full_width(full, train_kw,
+                                                   tmp_path, monkeypatch):
+    import torch.distributed as dist
+
+    from animatablegaussians_torch.parallel import data_parallel as dp
+    from animatablegaussians_torch.tools import render_fixture as rf
+    from animatablegaussians_torch.training import avatar_trainer as at
+    net, items = full
+    dev = items["extr"].device
+    rank_dev = dp.init_group(dev, 0, 1, "file://" + str(tmp_path / "rdv"))
+    try:
+        assert dist.get_backend() == dp.backend_for(dev) and rank_dev == dev
+        step = at.make_train_step(net, **train_kw)
+        dp_step = dp.make_dp_train_step(step)
+        gen = torch.Generator(device=dev).manual_seed(20)
+        draws = at.make_draws(gen, net.n_points)
+        state = at.make_train_state(net, rf.LR_INIT, rf.ITER_NUM)
+        before, reduce = {}, dp.reduce_gradients
+
+        def spy(net_):
+            before.update(grad_snapshot(net_))
+            return reduce(net_)
+
+        monkeypatch.setattr(dp, "reduce_gradients", spy)
+        with cudnn_deterministic():
+            t_single = step.loss_and_grads(state, items, draws)
+            g_single = grad_snapshot(net)
+            t_dp = dp_step.loss_and_grads(state, items, draws)
+        g_dp = grad_snapshot(net)
+        assert g_dp.keys() == before.keys()
+        assert all(torch.equal(g_dp[n], before[n]) for n in g_dp)
+        assert t_dp.keys() == t_single.keys()
+        assert all(torch.equal(t_dp[k], t_single[k]) for k in t_single)
+        grad_err = grad_errors(net, g_dp, g_single)
+        assert max(grad_err.values()) <= RTOL_DP_GRAD, grad_err
+        state, terms = dp_step(state, items, at.make_draws(gen,
+                                                           net.n_points))
+        assert state.iter_idx == 1 and finite(terms), terms
+    finally:
+        dist.destroy_process_group()
+    assert not dist.is_initialized()
+
+
+@pytest.mark.gpu
+def test_training_cli_under_torchrun_variables_on_the_card(card, tmp_path,
+                                                           monkeypatch):
+    """One epoch (2 x DRIVER_FRAMES steps) of a full-width capture after
+    DRIVER_PRETRAIN pretrain iterations, under WORLD_SIZE=1 RANK=0
+    LOCAL_RANK=0."""
+    import torch.distributed as dist
+
+    from animatablegaussians_torch.parallel import data_parallel as dp
+    opt = write_capture(str(tmp_path))
+    opt["train"].update(eval_interval=10 ** 9,
+                        ckpt_interval=dict(epoch=1, batch=10 ** 9))
+    cfg = write_config(opt, str(tmp_path / "routes.yaml"))
+    seen, init_group = {}, dp.init_group
+
+    def spy_init(*args, **kw):
+        rank_dev = init_group(*args, **kw)
+        seen.update(device=rank_dev, backend=dist.get_backend(),
+                    world=dist.get_world_size())
+        return rank_dev
+
+    monkeypatch.setattr(dp, "init_group", spy_init)
+    monkeypatch.setattr(driver.AvatarTrainer, "PRETRAIN_ITERS",
+                        DRIVER_PRETRAIN)
+    for k, v in dict(WORLD_SIZE="1", RANK="0", LOCAL_RANK="0",
+                     MASTER_ADDR="localhost",
+                     MASTER_PORT=str(_free_port())).items():
+        monkeypatch.setenv(k, v)
+    trainer = main_avatar_torch.main(["-c", cfg, "-m", "train"],
+                                     num_epochs=1, device=card.type)
+    assert seen == dict(device=card, backend=dp.backend_for(card), world=1)
+    assert trainer.device == card and trainer.rank == 0
+    assert not trainer.use_dp and not dist.is_initialized()
+    assert len(trainer.terms) == 2 * DRIVER_FRAMES
+    assert all(finite(t) for t in trainer.terms)
+    ckpt = torch.load(os.path.join(opt["train"]["net_ckpt_dir"],
+                                   "epoch_latest", "net.pt"),
+                      map_location=card, weights_only=True)
+    assert ckpt["iter_idx"] == trainer.iter_idx
+    assert not [k for k in ckpt["avatar_net"] if k.startswith("module.")]
+    fresh = driver.AvatarTrainer._build_net(
+        opt["train"]["data"]["data_dir"], opt["model"], card)
+    fresh.load_state_dict(ckpt["avatar_net"], strict=True)

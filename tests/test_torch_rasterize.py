@@ -1,8 +1,16 @@
 """Port rasterizer (animatablegaussians_torch.ops.rasterize) against the JAX
 package on the CPU: preprocess, binning pair order, the plain blend against
 blend_tiles_ref and against the Pallas ragged blend in interpret mode, and
-api.render end to end. The CUDA kernels themselves run only on the GPU
-(chip_smoke.py compares them with these plain versions there)."""
+api.render end to end. The CUDA kernels' own index arithmetic is repeated
+here in numpy against the plain versions.
+
+Marked ``gpu`` (skipped without a CUDA device), at the full-width
+fixture's shapes (531,520 Gaussians, 1500x2048): the expansion kernel bit
+for bit against its plain version, the forward blend within ATOL_BLEND
+with the (pixel, pair) work the frame needs (no contribution culled), the
+backward blend per channel, and render and render_sequence through the
+kernels against ``plain=True``; a small fixture on the card against the
+CPU."""
 
 import numpy as np
 import pytest
@@ -23,6 +31,9 @@ from animatablegaussians_torch.ops.rasterize import blend as tblend
 from animatablegaussians_torch.ops.rasterize import expand as texpand
 from animatablegaussians_torch.ops.rasterize.preprocess import \
     preprocess as tpreprocess
+from on_card import (ATOL_BLEND, JAX_N_PAIRS, card, compare_images,  # noqa
+                     fir_count, full, full_width, launches, reset_launches,
+                     splat_inputs)
 
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -279,18 +290,16 @@ def _kdtree_knn(query, ref, k=4, **_):
 
 
 def test_full_fixture_pair_count_matches_jax(monkeypatch):
-    """At full width (the chip_smoke.py fixture: 531,520 block-packed
+    """At full width (tools/render_fixture.py: 531,520 block-packed
     Gaussians with create_from_pcd attributes, skinned, 1500x2048) the
     port's pair count equals the JAX package's, and both equal the
-    reference chip_smoke.py holds the GPU run to. Each side is its own
+    reference the ``gpu`` render test holds the card to. Each side is its own
     package's code end to end: the JAX package's synthetic fixture,
     AvatarNet (block-packed point set, create_from_pcd, transform_cano2live
     with its ops/quat), preprocess and tile_rect, against the port's. Only
     the KNN is substituted, on both sides: exact distances from a k-d tree
     stand in for the brute-force KNN, too slow on the CPU at this size; its
     float32 expansion moves the count by ~0.02%."""
-    import chip_smoke
-
     from animatablegaussians_tpu.models import gaussian_model as jgm
     from animatablegaussians_tpu.models.avatar import AvatarNet as JNet
     from animatablegaussians_tpu.utils import synthetic
@@ -336,7 +345,7 @@ def test_full_fixture_pair_count_matches_jax(monkeypatch):
     n_jax, n_port = counts["jax"], counts["port"]
     # float32 preprocess in two frameworks: a handful of ceil() flips
     assert abs(n_port - n_jax) <= 1e-4 * n_jax
-    assert abs(n_jax - chip_smoke.JAX_N_PAIRS) <= 1e-4 * n_jax
+    assert abs(n_jax - JAX_N_PAIRS) <= 1e-4 * n_jax
 
 
 # ---------------------------------------------------------------------------
@@ -665,10 +674,9 @@ def test_forward_cull_box_keeps_every_passing_pair(seed):
     # some boxes are infinite (kappa past 1e4) and some empty (op too low)
     assert (~fin).any() and (box[:, 0] > box[:, 1]).any()
     assert not ok[:, box[:, 0] > box[:, 1]].any()
-    # chip_smoke.py counts the cull's evaluations with a torch copy of the
+    # the gpu test counts the cull's evaluations with a torch copy of the
     # box: the same classification, the same edges to float32 rounding
-    import chip_smoke
-    tbox = chip_smoke.cull_boxes(torch.as_tensor(rows)).numpy()
+    tbox = cull_boxes(torch.as_tensor(rows)).numpy()
     np.testing.assert_array_equal(np.isfinite(tbox), np.isfinite(box))
     np.testing.assert_allclose(tbox, box, rtol=1e-6, atol=0)
     # tightness: half-width against the float64 ellipse's
@@ -869,3 +877,210 @@ def test_expand_kernel_slot_search(kind, gauss, threads):
         total, grid_x)
     np.testing.assert_array_equal(keys, want_k.numpy())
     np.testing.assert_array_equal(gids, want_g.numpy())
+
+
+# ---------------------------------------------------------------------------
+# on the card, at the full-width fixture's shapes
+# ---------------------------------------------------------------------------
+
+# backward kernel vs its plain version on the card, per channel of
+# grad_rows, relative to the channel's largest entry: the same per-pair
+# arithmetic (-fmad=false), but the plain version's cumprod and cumsum scan
+# in another order, the kernel sums each pair's pixels with warp shuffles
+# and a sum over the tile's warps, then across tiles with atomics in an
+# order that varies from run to run, and the suffix term (total - prefix)
+# cancels before it is divided by 1 - alpha
+RTOL_BLEND_BWD = 1e-3
+# a small fixture on the card vs the CPU path (libm exp and conv sums
+# differ between the two devices; one alpha >= 1/255 decision that flips
+# moves a pixel by at most ~1/255)
+ATOL_CPU = 1e-2
+# the frames of render_sequence's call
+FRAMES = 4
+
+
+def cull_boxes(rows):
+    """(N, 4) [x0 x1 y0 y1]: ``csrc/blend.cu``'s ``cull_box`` in float32
+    torch operations, each rounded as the kernel rounds it (-fmad=false):
+    outside its box a pair fails power <= 0 and alpha >= 1/255 at every
+    pixel; an infinite box never culls, an empty one always does."""
+    f32 = lambda v: float(np.float32(v))  # noqa: E731
+    x, y, ca, cb, cc, op = rows[:, :6].unbind(1)
+    big = 2.0 ** 40
+    sound = ((x.abs() <= 2.0 ** 24) & (y.abs() <= 2.0 ** 24) & (ca > 0)
+             & (ca <= big) & (cc > 0) & (cc <= big) & (cb.abs() <= big)
+             & (op.abs() <= f32(3.4028234e38)))
+    empty = op < f32(np.float32(1) / np.float32(255) * np.float32(0.99999))
+    det = ca * cc - cb * cb
+    hd = 0.5 * (ca - cc)
+    lmax = 0.5 * (ca + cc) + torch.sqrt(hd * hd + cb * cb)
+    kappa = lmax * lmax / det
+    tau = torch.log(255.0 * op)
+    tau_m = torch.clamp(tau * (1.0 + 2.0 ** -16) + 2.0 ** -16, min=0.0)
+    t2 = 2.0 * tau_m * (1.0 + 2.0 ** -18 * kappa)
+    hx = torch.sqrt(t2 * cc / det)
+    hy = torch.sqrt(t2 * ca / det)
+    sx = (x.abs() + hx + 1.0) * 2.0 ** -20
+    sy = (y.abs() + hy + 1.0) * 2.0 ** -20
+    box = torch.stack([x - hx - sx, x + hx + sx, y - hy - sy, y + hy + sy], 1)
+    inf = float("inf")
+    never = torch.tensor([-inf, inf, -inf, inf], device=rows.device)
+    finite = sound & ~empty & (det >= f32(1e-30)) & (kappa <= 1e4)
+    box = torch.where(finite[:, None], box, never)
+    return torch.where((sound & empty)[:, None], -never, box)
+
+
+def pair_work(rows, gid, starts, grid_x, img_w, img_h):
+    """(evaluated, evaluated after the cull, contributing, contributing
+    but culled) (pixel, pair) counts of this frame's blend: a pixel
+    evaluates its tile's pairs front to back up to and including the one
+    that would take it below the 1e-4 cutoff; the forward kernel evaluates
+    only those whose cull box (``cull_boxes``) meets the pixel's warp's 8x4
+    rectangle; a pair contributes when it passes the tests before the
+    cutoff."""
+    P = tblend.TILE * tblend.TILE
+    lp = torch.arange(P, device=rows.device)
+    boxes = cull_boxes(rows)
+    n_eval = n_cull = n_contrib = lost = 0
+    with torch.no_grad():
+        for tb, g, kmask, _, geo in tblend._batches(rows, gid, starts,
+                                                    grid_x):
+            _, pexc, contrib, _ = tblend._transmittance(geo["alpha"],
+                                                        geo["use"])
+            px = (tb % grid_x * tblend.TILE)[:, None] + lp[None] % tblend.TILE
+            py = (tb // grid_x * tblend.TILE)[:, None] \
+                + lp[None] // tblend.TILE
+            inside = ((px < img_w) & (py < img_h))[:, :, None]
+            # the pixel's warp rectangle, as floats (B, P, 1)
+            wx0 = (px - px % 8).float()[:, :, None]
+            wy0 = (py - py % 4).float()[:, :, None]
+            b = boxes[g][:, None]                             # (B, 1, K, 4)
+            hit = ~((b[..., 1] < wx0) | (b[..., 0] > wx0 + 7.0)
+                    | (b[..., 3] < wy0) | (b[..., 2] > wy0 + 3.0))
+            live = inside & kmask[:, None, :] & (pexc >= tblend.T_EPS)
+            n_eval += int(live.sum())
+            n_cull += int((live & hit).sum())
+            n_contrib += int((inside & contrib).sum())
+            lost += int((inside & contrib & ~hit).sum())
+    return n_eval, n_cull, n_contrib, lost
+
+
+def _frame_pairs(net, items):
+    """The fixture frame's projected Gaussians, binned as ``api.render``
+    bins them: (preprocess output with the pad mask applied, radii,
+    seeded colours, opacity with the pad rows zeroed, width, height)."""
+    from animatablegaussians_torch.tools import render_fixture as rf
+    W, H = rf.IMG_W, rf.IMG_H
+    means3d, scales, rots, opac, colors = splat_inputs(net, items)
+    intr, extr = items["intr"], items["extr"]
+    vm, pm = tapi._full_projection(extr, intr, W, H)
+    pre = tpreprocess(means3d, scales, rots, vm, pm, W / (2.0 * intr[0, 0]),
+                      H / (2.0 * intr[1, 1]), W, H)
+    valid = pre.valid & net.valid
+    radii = torch.where(net.valid, pre.radii, torch.zeros_like(pre.radii))
+    opac = torch.where(valid, opac, torch.zeros_like(opac))
+    return pre._replace(valid=valid, radii=radii), colors, opac, W, H
+
+
+@pytest.mark.gpu
+@torch.no_grad()
+def test_expand_kernel_matches_plain_at_full_width(full):
+    net, items = full
+    pre, _, _, W, H = _frame_pairs(net, items)
+    gx, gy = -(-W // TILE), -(-H // TILE)
+    rect, offs = tbin.pair_counts(pre.means2d, pre.radii, pre.valid, gx, gy)
+    total, depth = int(offs[-1]), pre.depths.contiguous()
+    assert total > 0
+    k_keys, k_gids = texpand.expand_pairs(rect, depth, offs, total, gx)
+    p_keys, p_gids = texpand.expand_pairs_plain(rect, depth, offs, total, gx)
+    assert torch.equal(k_keys, p_keys) and torch.equal(k_gids, p_gids)
+    kb, pb = (tbin.bin_gaussians(pre.means2d, pre.depths, pre.radii,
+                                 pre.valid, W, H, TILE, plain=plain)
+              for plain in (False, True))
+    assert torch.equal(kb.gid, pb.gid) and torch.equal(kb.starts, pb.starts)
+    assert kb.n_pairs == pb.n_pairs == total
+
+
+@pytest.mark.gpu
+@torch.no_grad()
+def test_blend_kernels_match_plain_at_full_width(full):
+    """The forward blend within ATOL_BLEND of its plain version, the
+    per-warp cull dropping no contributing (pixel, pair), and the backward
+    blend on seeded cotangents within RTOL_BLEND_BWD a channel."""
+    net, items = full
+    pre, colors, opac, W, H = _frame_pairs(net, items)
+    gx, gy = -(-W // TILE), -(-H // TILE)
+    bins = tbin.bin_gaussians(pre.means2d, pre.depths, pre.radii, pre.valid,
+                              W, H, TILE)
+    rows = tapi._pack_rows(pre, opac, colors)
+    args = (rows, bins.gid, bins.starts, gx, gy, W, H)
+    k_out = tblend.blend_tiles(*args)
+    p_out = tblend.blend_tiles_plain(*args)
+    errs = {n: float((k - p).abs().max()) for n, k, p in
+            zip(("color", "depth", "alpha"), k_out, p_out)}
+    print(f"forward blend, max |kernel - plain|: {errs}")
+    assert all(e <= ATOL_BLEND[n] for n, e in errs.items()), errs
+    n_eval, n_cull, n_contrib, lost = pair_work(rows, bins.gid, bins.starts,
+                                                gx, W, H)
+    print(f"(pixel, pair) evaluations {n_eval}, after the cull {n_cull}, "
+          f"contributions {n_contrib}")
+    assert lost == 0 and n_contrib <= n_cull <= n_eval and n_contrib > 0
+
+    gen = torch.Generator(device=rows.device).manual_seed(2)
+    cots = (torch.randn((H, W, 3), generator=gen, device=rows.device),
+            torch.randn((H, W), generator=gen, device=rows.device),
+            torch.randn((H, W), generator=gen, device=rows.device))
+    bargs = args + tuple(k_out) + cots
+    g_k = tblend.blend_backward(*bargs)
+    g_p = tblend.blend_backward_plain(*bargs)
+    scale = g_p.abs().amax(dim=0)
+    rel = ((g_k - g_p).abs().amax(dim=0) / scale).tolist()
+    print(f"backward blend, max |kernel - plain| / max |plain| a channel "
+          f"(x y ca cb cc op r g b depth): {rel}")
+    assert min(scale.tolist()) > 0 and max(rel) <= RTOL_BLEND_BWD, rel
+
+
+@pytest.mark.gpu
+@torch.no_grad()
+def test_full_width_render_through_the_kernels(full):
+    """One render and one FRAMES-frame render_sequence: each kernel of the
+    path launched (the FIR kernel once per FIR of the three heads, none
+    left to F.conv2d), finite, covered, within ATOL_BLEND of
+    ``plain=True``; n_pairs within 1% of the JAX package's."""
+    from animatablegaussians_torch.ops import fir
+    from animatablegaussians_torch.tools import render_fixture as rf
+    net, items = full
+    items = {k: items[k] for k in rf.RENDER_KEYS}
+    seq = rf.sequence(items, FRAMES)
+    kw = dict(bg_color=(1.0, 1.0, 1.0), img_w=rf.IMG_W, img_h=rf.IMG_H)
+    counted = (texpand.expand_pairs, tblend.blend_tiles, fir.upfirdn2d_fir)
+    reset_launches(*counted)
+    out = net.render(items, **kw)
+    out_seq = net.render_sequence(seq, **kw)
+    n = launches(*counted)
+    assert min(n.values()) > 0 and n["upfirdn2d_fir"] == 2 * fir_count(
+        net)[0], n
+    assert tuple(out_seq["rgb_map"].shape) == (FRAMES, rf.IMG_H, rf.IMG_W,
+                                               3)
+    for o, ref in ((out, net.render(items, plain=True, **kw)),
+                   (out_seq, net.render_sequence(seq, plain=True, **kw))):
+        for k in ("rgb_map", "mask_map", "depth_map"):
+            assert torch.isfinite(o[k]).all(), k
+        assert float((o["mask_map"] > 0.5).float().mean()) > 0
+        print(compare_images(o, ref, ATOL_BLEND))
+    rel = abs(out["n_pairs"] - JAX_N_PAIRS) / JAX_N_PAIRS
+    assert rel <= 0.01, (out["n_pairs"], JAX_N_PAIRS)
+
+
+@pytest.mark.gpu
+@torch.no_grad()
+def test_small_fixture_on_the_card_against_the_cpu(card):
+    from animatablegaussians_torch.tools import render_fixture as rf
+    net, items = rf.build(card, map_h=64, img_w=128, img_h=128,
+                          channel_max=32)
+    g_out = net.render(items, img_w=128, img_h=128)
+    c_out = net.to("cpu").render({k: v.cpu() for k, v in items.items()},
+                                 img_w=128, img_h=128)
+    err = max(float((g_out[k].cpu() - c_out[k]).abs().max())
+              for k in ("rgb_map", "mask_map", "depth_map"))
+    assert err <= ATOL_CPU, err

@@ -10,7 +10,14 @@ Both sides get the same numbers: the JAX weights are carried across with
 ``params_from_jax``, and the step's draws, the random style among them, are
 made from the JAX package's own key splits and handed to the port. The
 loss is L1 + offset (no LPIPS: neither option reaches it), so each JAX
-step compiles once."""
+step compiles once.
+
+Marked ``gpu`` (skipped without a CUDA device), on the full-width fixture
+with the bench's settings: a B = 1 and a B = 2 step with remat against
+the same steps without it under cuDNN's deterministic algorithms, with
+the FIR launches the recompute adds; the render with remat bit for bit;
+a B = 1 step with random_style through the kernels against
+``plain=True``."""
 
 import dataclasses
 
@@ -34,6 +41,9 @@ from animatablegaussians_torch.ops import fir
 from animatablegaussians_torch.training import avatar_trainer as tat
 from animatablegaussians_torch.utils.convert import (dual_styleunet_state,
                                                       params_from_jax)
+from on_card import (assert_step_matches, by_direction, card,  # noqa: F401
+                     cudnn_deterministic, finite, fir_calls, fir_count, full,
+                     full_width, grad_snapshot, train_kw)
 
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -368,3 +378,114 @@ def test_random_style_draws_and_batched_refusal(tiny):
     with pytest.raises(KeyError, match="style"):
         rs.render({k: torch.as_tensor(v) for k, v in tiny["items"].items()},
                   training=True, draws=d, img_w=IMG, img_h=IMG)
+
+
+# ---------------------------------------------------------------------------
+# on the card, at full width
+# ---------------------------------------------------------------------------
+
+# remat's steps against the same steps without it under cuDNN's
+# deterministic algorithms: the forward is the same float32 arithmetic in
+# the same order, so the losses may differ only by the rounding of their
+# last sums; the gradients by the backward blend's atomics, which sum in a
+# run-dependent order (the events of on_card.RTOL_GRAD cannot occur, the
+# forward being identical)
+RTOL_REMAT_LOSS, RTOL_REMAT_GRAD = 1e-6, 1e-4
+
+
+def _set_remat(net, on: bool) -> None:
+    """The three heads' ``remat``, as ``AvatarNet({"remat": on})`` sets it
+    (models/avatar.py)."""
+    for head in (net.position_net, net.other_net, net.color_net):
+        head.remat = on
+
+
+def _remat_fir_count(net) -> int:
+    """FIR forwards that remat's recompute adds to a train step's backward,
+    from the heads' structure: each decoder stage of each branch reruns its
+    up-conv's blur, whose output the backward of the noise injection and
+    leaky ReLU after it needs; the ToRGB's upsample of the skip saves no
+    tensor, so the recompute stops before it (torch.utils.checkpoint's
+    early stop). One a stage and branch: ``len(convs1)`` a head (two
+    StyledConvs a stage, two branches)."""
+    return sum(len(h.convs1) for h in (net.position_net, net.other_net,
+                                       net.color_net))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 2])
+def test_remat_step_equals_no_remat_at_full_width(full_width, train_kw, b):
+    from animatablegaussians_torch.tools import render_fixture as rf
+    net, items, fixture = full_width
+    gen = torch.Generator(device=items["extr"].device).manual_seed(20)
+    if b == 1:
+        step, batch = tat.make_train_step(net, **train_kw), items
+        draws = tat.make_draws(gen, net.n_points)
+    else:
+        step = tat.make_train_step_batched(net, **train_kw)
+        batch = rf.sequence({k: items[k] for k in rf.TRAIN_KEYS}, b)
+        draws = [tat.make_draws(gen, net.n_points) for _ in range(b)]
+    runs = {}
+    try:
+        for on in (False, True):
+            _set_remat(net, on)
+            net.load_state_dict(fixture)
+            state = tat.make_train_state(net, rf.LR_INIT, rf.ITER_NUM)
+            with cudnn_deterministic(), fir_calls() as calls:
+                terms = step.loss_and_grads(state, batch, draws)
+            runs[on] = (terms, grad_snapshot(net),
+                        by_direction(calls, (0, 1)))
+            net.zero_grad(set_to_none=True)
+    finally:
+        _set_remat(net, False)
+    n_fir, n_fir_grad = fir_count(net)
+    assert runs[False][2] == {0: n_fir, 1: n_fir_grad}
+    assert runs[True][2] == {0: n_fir + _remat_fir_count(net),
+                             1: n_fir_grad}
+    assert_step_matches(net, runs[True][:2], runs[False][:2],
+                        RTOL_REMAT_LOSS, RTOL_REMAT_GRAD)
+
+
+@pytest.mark.gpu
+@torch.no_grad()
+def test_remat_render_is_bitwise_at_full_width(full):
+    from animatablegaussians_torch.tools import render_fixture as rf
+    net, items = full
+    renders = {}
+    try:
+        for on in (False, True):
+            _set_remat(net, on)
+            with cudnn_deterministic():
+                renders[on] = net.render(items, img_w=rf.IMG_W,
+                                         img_h=rf.IMG_H)
+    finally:
+        _set_remat(net, False)
+    for k in ("rgb_map", "mask_map", "depth_map"):
+        assert torch.equal(renders[True][k], renders[False][k]), k
+
+
+@pytest.mark.gpu
+def test_random_style_step_kernels_match_plain_at_full_width(full,
+                                                             train_kw):
+    """Step 0 through the kernels against ``plain=True`` (the tolerances of
+    tests/test_torch_train.py's gpu tests), a style draw that differs
+    between two steps, the next step finite."""
+    from animatablegaussians_torch.tools import render_fixture as rf
+    net, items = full
+    gen = torch.Generator(device=items["extr"].device).manual_seed(20)
+    net.random_style = True
+    try:
+        sd = tat.draws_style_dim(net)
+        d1, d2 = (tat.make_draws(gen, net.n_points, sd) for _ in range(2))
+        res = []
+        for plain in (True, False):
+            state = tat.make_train_state(net, rf.LR_INIT, rf.ITER_NUM)
+            step = tat.make_train_step(net, plain=plain, **train_kw)
+            res.append((step.loss_and_grads(state, items, d1),
+                        grad_snapshot(net)))
+        assert_step_matches(net, res[1], res[0])
+        state, terms = step(state, items, d2)
+        assert finite(terms), terms
+        assert not torch.equal(d1["style"], d2["style"])
+    finally:
+        net.random_style = False

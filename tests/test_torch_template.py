@@ -41,7 +41,7 @@ from animatablegaussians_torch.models.template import TemplateNet
 from animatablegaussians_torch.models.volume import CanoBlendWeightVolume
 from animatablegaussians_torch.training import template_trainer as tt
 from animatablegaussians_torch.utils.convert import template_params_from_jax
-from tests.test_template import _uv_sphere
+from test_template import _uv_sphere
 
 J_NUM, RES, R, S = 55, 8, 6, 8
 ATOL_MAP = 1e-5
@@ -279,11 +279,10 @@ def test_test_geometry_matches_jax(setup, tmp_path):
     vj, fj, nj = jtt.test_geometry(jnet, s["params"],
                                    dict(cano_bounds=bounds), space="cano",
                                    testing_res=(12, 13, 11), chunk=512)
-    timings = {}
     vt, ft, nt = tt.test_geometry(tnet, dict(cano_bounds=bounds),
                                   space="cano", testing_res=(12, 13, 11),
-                                  chunk=500, timings=timings)
-    assert len(ft) > 50 and set(timings) == {"sdf_s", "mcubes_s"}
+                                  chunk=500)
+    assert len(ft) > 50
     np.testing.assert_array_equal(ft, fj)
     np.testing.assert_allclose(vt, vj, atol=1e-5)
     np.testing.assert_allclose(nt, nj, atol=1e-4)

@@ -15,6 +15,14 @@ NeRF item's rays and bounds 1e-5 relative, 1e-6 absolute (from SMPL-X
 vertices that agree to that); ``BaseTrainer``'s ``loss.txt`` values as
 printed (four decimals) and its checkpoint names exactly; a resume bit for
 bit; barycentric 1e-5 relative, 1e-6 absolute.
+
+Marked ``gpu`` (skipped without a CUDA device): the losses and their
+gradients on the card against the CPU (LOSS_RTOL; crop_square and
+mask_center exact; random_crop_center's card draws inside the mask's
+box), and three ``BaseTrainer`` iterations of a ConvStack with Adam on
+the card: its files (loss.txt, a TensorBoard event file, batch_3 /
+epoch_1 / epoch_latest) and a resume that restores the weights and Adam's
+state bit for bit.
 """
 
 import os
@@ -36,7 +44,8 @@ from animatablegaussians_torch.tools import capture_fixture as cf
 from animatablegaussians_torch.training import base_trainer as tbt
 from animatablegaussians_torch.training import losses as tL
 from animatablegaussians_torch.utils import geometry as tgeo
-from tests.test_torch_data import _compare_items
+from test_torch_data import _compare_items
+from on_card import card, rel_err  # noqa: F401
 
 RTOL, ATOL = 1e-5, 1e-6
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -222,8 +231,8 @@ def test_base_trainer_files_match_jax(tmp_path, monkeypatch):
     """The same item order, log lines (every 2 iterations, 0.9 running
     mean), mini-test calls and checkpoint directories as the JAX
     trainer, over 3 epochs of 6 items (TensorBoard blocked on both
-    sides: where TensorFlow is installed its import takes ~20 s;
-    chip_smoke.py phase 22 checks the event file on the card)."""
+    sides: where TensorFlow is installed its import takes ~20 s; the
+    ``gpu`` test below checks the event file on the card)."""
     monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
     seen = {"jax": [], "torch": []}
     tests = {"jax": [], "torch": []}
@@ -354,3 +363,117 @@ def test_new_modules_load_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("ok")
+
+
+# ---------------------------------------------------------------------------
+# on the card
+# ---------------------------------------------------------------------------
+
+# the losses and their gradients, card against CPU
+LOSS_RTOL = 1e-5
+
+
+@pytest.mark.gpu
+def test_losses_on_the_card_against_the_cpu(card):
+    from animatablegaussians_torch.utils import synthetic
+    rng = np.random.default_rng(22)
+    f = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32))
+    u = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.random(s).astype(np.float32))
+    cases = dict(
+        mse=(tL.mse, (f(64, 64), f(64, 64))),
+        tv_loss=(tL.tv_loss, (f(256, 256, 3),)),
+        eikonal_loss=(tL.eikonal_loss, (f(4096, 3),)),
+        second_order_smoothness=(tL.second_order_smoothness, (f(64, 99),)),
+        weighted_mse=(tL.weighted_mse, (f(64, 64), f(64, 64), u(64, 64))),
+        cosine_distance=(tL.cosine_distance, (f(4096, 3), f(4096, 3))),
+        iou_loss=(tL.iou_loss, (u(4, 128, 128), u(4, 128, 128))),
+        kld_loss=(tL.kld_loss, (f(64, 32), 0.3 * f(64, 32))))
+    errs = {}
+    for name, (fn, args) in cases.items():
+        a = args[0].clone().requires_grad_(True)
+        ac = args[0].to(card).requires_grad_(True)
+        want = fn(a, *args[1:])
+        got = fn(ac, *[x.to(card) for x in args[1:]])
+        want.backward()
+        got.backward()
+        errs[name] = max(rel_err(got, want), rel_err(ac.grad, a.grad))
+    assert max(errs.values()) <= LOSS_RTOL, errs
+    mask = torch.from_numpy(synthetic.make_items(
+        img_w=1500, img_h=2048)["mask_img"])
+    img = u(2048, 1500, 3)
+    c_card, c_cpu = tL.mask_center(mask.to(card)), tL.mask_center(mask)
+    assert torch.equal(c_card.cpu(), c_cpu)
+    assert torch.equal(tL.crop_square(img.to(card), c_card, 512).cpu(),
+                       tL.crop_square(img, c_cpu, 512))
+    gen = torch.Generator(device=card).manual_seed(22)
+    draws = torch.stack([tL.random_crop_center(gen, mask.to(card), 512)
+                         for _ in range(64)]).cpu()
+    ys = torch.nonzero(mask.any(1))[:, 0]
+    xs = torch.nonzero(mask.any(0))[:, 0]
+    assert bool(((draws[:, 0] >= xs.min()) & (draws[:, 0] <= xs.max())
+                 & (draws[:, 1] >= ys.min())
+                 & (draws[:, 1] <= ys.max())).all())
+
+
+@pytest.mark.gpu
+def test_base_trainer_on_the_card(card, tmp_path):
+    from animatablegaussians_torch.models import feature2d as f2d
+    rng = np.random.default_rng(22)
+    tests = []
+
+    class Items:
+        x = rng.random((4, 3, 64, 64)).astype(np.float32)
+
+        def __len__(self):
+            return len(self.x)
+
+        def __getitem__(self, i):
+            return dict(x=self.x[i], y=self.x[i][::-1].copy())
+
+    def trainer(d):
+        torch.manual_seed(22)
+        net = f2d.ConvStack(3, 3, 8, kernel_size=3, layer_num=2,
+                            use_relu=True, device=card)
+        opt = torch.optim.Adam(net.parameters(), lr=1e-3)
+
+        def step(items, g):
+            opt.zero_grad(set_to_none=True)
+            x = items["x"][None] + 0.01 * torch.randn(
+                items["x"][None].shape, generator=g, device=g.device)
+            loss = tL.mse(net(x), items["y"][None])
+            loss.backward()
+            opt.step()
+            return {"mse": loss.detach()}
+
+        opt_d = {"train": {"loss_weight": {"mse": 1.0}, "net_ckpt_dir": d,
+                           "ckpt_interval": {"epoch": 1, "batch": 3},
+                           "eval_interval": 3}}
+        tr = tbt.BaseTrainer(opt_d, step, net, Items(), optimizer=opt,
+                             mini_test_fn=lambda t: tests.append(
+                                 t.iter_idx), device=card)
+        tr.log_interval = 1
+        return tr
+
+    d = str(tmp_path / "base_trainer")
+    a = trainer(d)
+    a.train(iter_num=3, num_threads=2)
+    files = sorted(os.listdir(d))
+    events = [f for sub in files if os.path.isdir(os.path.join(d, sub))
+              and not sub.startswith(("batch_", "epoch_"))
+              for f in os.listdir(os.path.join(d, sub))
+              if f.startswith("events.out.tfevents")]
+    with open(os.path.join(d, "loss.txt")) as fp:
+        lines = fp.read().splitlines()
+    b = trainer(str(tmp_path / "base_trainer_b"))
+    epoch = b.load_ckpt(os.path.join(d, "batch_3"))
+    assert all(torch.equal(v, b.net.state_dict()[k])
+               for k, v in a.net.state_dict().items())
+    sa = a.optimizer.state_dict()["state"]
+    sb = b.optimizer.state_dict()["state"]
+    assert all(torch.equal(sa[p][k].cpu(), sb[p][k].cpu())
+               for p in sa for k in ("exp_avg", "exp_avg_sq", "step"))
+    assert a.iter_idx == b.iter_idx == 3 and epoch == 1
+    assert len(lines) == 3 and events and tests == [3]
+    assert {"batch_3", "epoch_1", "epoch_latest"} <= set(files)

@@ -48,7 +48,7 @@ from animatablegaussians_torch.training import lr_schedule as tlr
 from animatablegaussians_torch.utils import nerf as tnerf
 from animatablegaussians_torch.utils import recon as trecon
 from animatablegaussians_torch.utils.convert import mlp_state
-from tests.test_template import _uv_sphere
+from test_template import _uv_sphere
 
 ATOL = 1e-6      # the same elementwise float32 sequence on both sides
 ATOL_SUM = 1e-5  # a matmul / einsum / reduction in another order

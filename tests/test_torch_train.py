@@ -6,7 +6,15 @@ a subprocess check that a train step imports no jax.
 
 Both sides get the same numbers: the JAX weights are carried across with
 ``params_from_jax`` and ``lpips_from_jax``, and the step's random draws are
-made from the JAX package's own key splits and handed to the port."""
+made from the JAX package's own key splits and handed to the port.
+
+Marked ``gpu`` (skipped without a CUDA device), on the full-width fixture
+with the bench's settings: step 0 through the kernels against
+``plain=True`` and against the FIRs through the library call; the
+kernels' launches over TRAIN_STEPS steps (the backward blend once a step,
+the FIR kernel once per FIR of the forward and once per FIR whose input
+carries a gradient), finite losses, every parameter group moved; two
+pretrain steps."""
 
 import dataclasses
 import os
@@ -34,6 +42,10 @@ from animatablegaussians_torch.training import lpips as tlp
 from animatablegaussians_torch.utils.convert import (dual_styleunet_state,
                                                       lpips_from_jax,
                                                       params_from_jax)
+from on_card import (assert_step_matches, card, finite, fir_count,  # noqa
+                     fir_through_library, full, full_width, grad_snapshot,
+                     kernels, launches, param_groups, reset_launches,
+                     train_kw)
 
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -206,8 +218,8 @@ def test_dual_styleunet_gradients_match_jax():
     64^2, channel_max 32) against jax.vjp, for one numpy cotangent. The
     noise buffers get none (JAX: stop_gradient). View features join the
     decoder after its fifth stage and reach the output only through a
-    sixth (out_size 1024), which a CPU-sized net does not have; the GPU
-    run's train phase holds that path's gradient, viewdir_net's, between
+    sixth (out_size 1024), which a CPU-sized net does not have; the
+    ``gpu`` train tests hold that path's gradient, viewdir_net's, between
     the kernel and the plain splat."""
     kw = dict(inp_size=32, inp_ch=3, out_ch=3, out_size=64, style_dim=32,
               n_mlp=2, channel_max=32)
@@ -478,3 +490,82 @@ def test_port_trains_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("ok")
+
+
+# ---------------------------------------------------------------------------
+# on the card, at full width
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 7
+
+
+def _step_0(step, net, items, seed):
+    """Step 0's (loss terms, gradients) of ``step`` from fresh Adam state
+    on draws from a generator seeded ``seed``."""
+    from animatablegaussians_torch.tools import render_fixture as rf
+    state = tat.make_train_state(net, rf.LR_INIT, rf.ITER_NUM)
+    gen = torch.Generator(device=items["extr"].device).manual_seed(seed)
+    terms = step.loss_and_grads(state, items, tat.make_draws(gen,
+                                                             net.n_points))
+    grads = grad_snapshot(net)
+    net.zero_grad(set_to_none=True)
+    return terms, grads
+
+
+@pytest.mark.gpu
+def test_train_step_kernels_match_plain_at_full_width(full, train_kw):
+    net, items = full
+    plain = _step_0(tat.make_train_step(net, plain=True, **train_kw), net,
+                    items, 0)
+    kern = _step_0(tat.make_train_step(net, **train_kw), net, items, 0)
+    assert_step_matches(net, kern, plain)
+
+
+@pytest.mark.gpu
+def test_train_step_fir_kernel_matches_the_library_call(full, train_kw):
+    """Step 0 with the FIRs through the kernel against the same step with
+    them through one PyTorch call each (swapped in here, never in the
+    port), the heads eager both ways."""
+    net, items = full
+    step = tat.make_train_step(net, **train_kw)
+    with fir_through_library():
+        lib = _step_0(step, net, items, 5)
+    assert_step_matches(net, _step_0(step, net, items, 5), lib)
+
+
+@pytest.mark.gpu
+def test_train_steps_launch_each_kernel_and_move_each_group(full,
+                                                            train_kw):
+    from animatablegaussians_torch.tools import render_fixture as rf
+    net, items = full
+    state = tat.make_train_state(net, rf.LR_INIT, rf.ITER_NUM)
+    step = tat.make_train_step(net, **train_kw)
+    gen = torch.Generator(device=items["extr"].device).manual_seed(0)
+    before = {n: p.detach().clone() for n, p in net.named_parameters()}
+    reset_launches(*kernels())
+    for _ in range(TRAIN_STEPS):
+        state, terms = step(state, items, tat.make_draws(gen, net.n_points))
+        assert finite(terms), terms
+    n_fir, n_fir_grad = fir_count(net)
+    assert launches(*kernels()) == dict(
+        expand_pairs=TRAIN_STEPS, blend_tiles=TRAIN_STEPS,
+        blend_backward=TRAIN_STEPS,
+        upfirdn2d_fir=TRAIN_STEPS * (n_fir + n_fir_grad))
+    # every group with a gradient (cano_gaussian's features are unused)
+    moved = {g: max(float((p.detach() - before[n]).abs().max())
+                    for n, p in named if p.numel()
+                    and not n.startswith("cano_gaussian.features"))
+             for g, named in param_groups(net).items()
+             if any(p.grad is not None for _, p in named)}
+    assert min(moved.values()) > 0, moved
+
+
+@pytest.mark.gpu
+def test_pretrain_steps_at_full_width(full):
+    from animatablegaussians_torch.tools import render_fixture as rf
+    net, items = full
+    state = tat.make_train_state(net, rf.LR_INIT, rf.ITER_NUM)
+    pstep = tat.make_pretrain_step(net)
+    for _ in range(2):
+        state, terms = pstep(state, items["smpl_pos_map"][..., :3])
+        assert finite(terms), terms
